@@ -1,0 +1,8 @@
+"""PyTorch / CUDA port of ``litepose_tpu`` for NVIDIA Hopper GPUs.
+
+The JAX package ``litepose_tpu`` is the reference; this package mirrors its
+layout (``models/``, ``core/``, ``ops/``, ``train/``, ``data/``) and holds
+the hand-written CUDA kernels in ``csrc/`` with their builder in
+``kernels/``.  It never imports jax.  Ported so far: the serving slice
+(``core.engine.PoseEngine.process_batch_square``).
+"""
