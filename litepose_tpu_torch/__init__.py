@@ -3,6 +3,7 @@
 The JAX package ``litepose_tpu`` is the reference; this package mirrors its
 layout (``models/``, ``core/``, ``ops/``, ``train/``, ``data/``) and holds
 the hand-written CUDA kernels in ``csrc/`` with their builder in
-``kernels/``.  It never imports jax.  Ported so far: the serving slice
-(``core.engine.PoseEngine.process_batch_square``).
+``kernels/``.  It never imports jax or cv2.  Ported so far: serving
+(``core.engine.PoseEngine.process_batch_square``) and the eval protocol
+(``PoseEngine.process``, ``process_indexed``, ``process_many``).
 """

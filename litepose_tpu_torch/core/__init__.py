@@ -1,1 +1,1 @@
-"""Stage aggregation and the end-to-end serving engine."""
+"""Stage aggregation and the engine: serving and the eval protocol."""

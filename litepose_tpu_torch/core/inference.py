@@ -11,6 +11,7 @@ the JAX ``make_infer_fn(decode_layout=True)``: det (B, J, H, W) and tag
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,24 +44,58 @@ class InferenceFlags(NamedTuple):
     flip_mode: str = "concat"
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor, copied to ``device`` once: a fresh host copy
+    per call would make the host wait for the card's queue."""
+    return torch.tensor(values, dtype=dtype).to(device)
+
+
 def normalize_images(images: torch.Tensor,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 RGB (B, H, W, 3) -> ImageNet-normalized (B, 3, H, W) in
     ``dtype``: ``x * (1 / (255 std)) + (-mean / std)``, the constants
     computed in float64 and rounded to fp32 as the JAX package does."""
     std = np.asarray(IMAGENET_STD, np.float64)
-    scale = torch.tensor((1.0 / (255.0 * std)).astype(np.float32), dtype=dtype,
-                         device=images.device)
-    bias = torch.tensor((-np.asarray(IMAGENET_MEAN, np.float64) / std).astype(np.float32),
-                        dtype=dtype, device=images.device)
+    scale = tuple((1.0 / (255.0 * std)).astype(np.float32).tolist())
+    bias = tuple((-np.asarray(IMAGENET_MEAN, np.float64) / std).astype(np.float32).tolist())
+    scale = device_constant(scale, dtype, images.device)
+    bias = device_constant(bias, dtype, images.device)
     x = images.permute(0, 3, 1, 2).to(dtype)
     return (x * scale[:, None, None] + bias[:, None, None]).contiguous()
 
 
+def _antialias_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis (``jax._src.image.scale.compute_weight_mat``): the
+    triangle kernel widened by in/out when downsampling, each column
+    normalized to sum 1, columns sampled outside the input zeroed."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale
+              - 0.5)
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]
+         ).abs() / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
 def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """(B, C, h, w) bilinear resize with half-pixel centres (== the JAX
-    ``jax.image.resize(..., "bilinear")`` when upsampling)."""
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
+    """(B, C, h, w) bilinear resize with half-pixel centres, as the JAX
+    package's ``jax.image.resize(..., "bilinear")``.  Upsampling is
+    ``F.interpolate``; a downsampled axis takes JAX's antialiasing (a
+    triangle kernel widened by the ratio, which ``F.interpolate`` does not
+    apply), as two weight-matrix products."""
+    h, w = x.shape[-2:]
+    if hw[0] >= h and hw[1] >= w:
+        return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
+    wh = _antialias_weights(h, hw[0], x.device).to(x.dtype)
+    ww = _antialias_weights(w, hw[1], x.device).to(x.dtype)
+    return torch.matmul(wh.t(), torch.matmul(x, ww))
 
 
 def _collect(outputs: Sequence[torch.Tensor], flags: InferenceFlags):
@@ -107,8 +142,7 @@ def make_infer_fn(apply_fn: Callable[[torch.Tensor], List[torch.Tensor]],
         heat, tags = _collect(outputs, flags)
 
         if flags.flip_test:
-            fidx = torch.tensor(flags.flip_index, dtype=torch.long,
-                                device=heat.device)
+            fidx = device_constant(tuple(flags.flip_index), torch.long, heat.device)
             heat_f, tags_f = _collect([o.flip(3) for o in outputs_f], flags)
             heat_f = heat_f.index_select(1, fidx)
             if flags.tag_per_joint:

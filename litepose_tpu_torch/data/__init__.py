@@ -1,1 +1,2 @@
-"""Dataset tables the serving slice needs (no cv2)."""
+"""Affine transforms and the resize ladder, dataset tables and synthetic
+scenes, without cv2."""

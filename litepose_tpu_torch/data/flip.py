@@ -1,15 +1,18 @@
-"""Left-right joint permutation for flip test, CrowdPose only (counterpart
-of ``litepose_tpu/data/flip.py``, whose package imports cv2).
+"""Left-right joint permutations for flip test (counterpart of
+``litepose_tpu/data/flip.py``, whose package imports cv2).
 
-CrowdPose joints: shoulders, elbows, wrists, hips, knees, ankles (left and
-right interleaved), then head-top and neck, which mirror onto themselves.
-The COCO tables come with the eval slice.
+COCO joints: nose, eyes, ears, shoulders, elbows, wrists, hips, knees,
+ankles (left and right interleaved; the nose mirrors onto itself).
+CrowdPose joints: shoulders, elbows, wrists, hips, knees, ankles, then
+head-top and neck, which mirror onto themselves.  A centre joint comes
+last and mirrors onto itself.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+COCO_PAIRS = [(1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14), (15, 16)]
 CROWDPOSE_PAIRS = [(0, 1), (2, 3), (4, 5), (6, 7), (8, 9), (10, 11)]
 
 
@@ -21,14 +24,19 @@ def _mirror_pairs(num_joints: int, pairs) -> List[int]:
 
 
 FLIP_CONFIG = {
+    "COCO": _mirror_pairs(17, COCO_PAIRS),
+    "COCO_WITH_CENTER": _mirror_pairs(18, COCO_PAIRS),
     "CROWDPOSE": _mirror_pairs(14, CROWDPOSE_PAIRS),
     "CROWDPOSE_WITH_CENTER": _mirror_pairs(15, CROWDPOSE_PAIRS),
 }
 
 
 def flip_index_for(dataset: str, with_center: bool = False) -> List[int]:
-    """The flip permutation of a CrowdPose dataset name."""
-    if "crowd_pose" not in dataset and "crowdpose" not in dataset:
-        raise ValueError(f"no flip_index ported for dataset {dataset!r} "
-                         "(only CrowdPose so far)")
-    return FLIP_CONFIG["CROWDPOSE_WITH_CENTER" if with_center else "CROWDPOSE"]
+    """The flip permutation of a dataset name (COCO or CrowdPose)."""
+    if "coco" in dataset:
+        name = "COCO"
+    elif "crowd_pose" in dataset or "crowdpose" in dataset:
+        name = "CROWDPOSE"
+    else:
+        raise ValueError(f"no flip_index known for dataset {dataset!r}")
+    return FLIP_CONFIG[name + "_WITH_CENTER" if with_center else name]

@@ -25,29 +25,36 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("nms_topk.cu", "group_greedy.cu")
+SOURCES = ("nms_topk.cu", "group_greedy.cu", "group_hungarian.cu", "refine_argmax.cu")
+HEADERS = ("group_common.cuh",)
 LIB_NAME = "liblitepose_kernels.so"
 
 # sm_90a keeps Hopper-only instructions available to later kernels.
-# --fmad=false: the grouping kernel must round every multiply and add the way
-# its plain twin does (see csrc/group_greedy.cu); never --use_fast_math.
+# --fmad=false: the grouping and refine kernels must round every multiply and
+# add the way their plain twins do (see csrc/group_common.cuh); never
+# --use_fast_math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_GROUP_ARGS = (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+               _INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR)
 _SIGNATURES = {
     # det, is_bf16, sup, val, pos, planes, H, W, M, r, stream
     "lp_nms_topk": (_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                     _INT, _PTR),
     # tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
     # tag_thr, use_val, ignore_too_much, stream
-    "lp_group_greedy": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                        _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR),
+    "lp_group_greedy": _GROUP_ARGS,
+    "lp_group_hungarian": _GROUP_ARGS,
+    # need, prev, det, tag, pos, B, K, P, T, HW, stream
+    "lp_refine_argmax": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                         _INT, _PTR),
 }
 
 
@@ -64,7 +71,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -81,17 +88,33 @@ def build() -> tuple[Path, float, str]:
     if lib.is_file():
         return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a reader never sees half a file
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    # one nvcc per source, all at once, then one link
+    compiles = []
+    for name in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / (name + ".o")), str(CSRC / name)]
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = False
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    # link under a private name, then rename: a reader never sees half a file
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    t0 = time.perf_counter()
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+           *(str(out_dir / (name + ".o")) for name in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log

@@ -1,2 +1,2 @@
-"""Decode: NMS + top-M peaks (K1) and greedy AE grouping (K2), each a CUDA
-kernel with a plain PyTorch twin."""
+"""Decode: NMS + top-M peaks (K1), greedy (K2) or Hungarian (K3) AE
+grouping, and refine (K4), each a CUDA kernel with a plain PyTorch twin."""

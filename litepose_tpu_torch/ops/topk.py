@@ -83,6 +83,6 @@ def top_k_peaks_batch(det: torch.Tensor, tag: torch.Tensor, max_people: int,
     tag_k = torch.gather(
         tag.reshape(B, K, T, H * W), 3,
         ind[:, :, None, :].expand(B, K, T, max_people),
-    ).permute(0, 1, 3, 2).float()
+    ).permute(0, 1, 3, 2).float().contiguous()
     loc_k = torch.stack([(ind % W).float(), (ind // W).float()], dim=3)
     return tag_k, loc_k, val_k

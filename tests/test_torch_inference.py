@@ -99,3 +99,31 @@ def test_normalize_images_matches_jax(dtype):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((64, 96), (32, 40)), ((30, 40), (30, 17)),
+                                          ((20, 24), (48, 64)), ((64, 64), (200, 20))])
+def test_resize_bilinear_matches_jax_resize(in_hw, out_hw):
+    """``jax.image.resize(..., "bilinear")`` antialiases a downsampled axis
+    (a triangle kernel widened by the ratio) and interpolates an upsampled
+    one; the port's resize does the same.  fp32 on N(0, 1) inputs, summed
+    in another order (``F.interpolate`` when upsampling, two weight-matrix
+    products when downsampling): within 1e-5 (4.5e-6 seen)."""
+    from litepose_tpu_torch.core.inference import resize_bilinear
+
+    x = np.random.default_rng(sum(in_hw + out_hw)).standard_normal((2, 3) + in_hw)
+    x = x.astype(np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (2, 3) + out_hw, "bilinear"))
+    got = resize_bilinear(torch.from_numpy(x), out_hw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_flip_tables_match_jax():
+    pytest.importorskip("cv2")  # the JAX package's data module imports cv2
+    from litepose_tpu.data.flip import flip_index_for as j_flip_index_for
+
+    for dataset in ("coco_kpt", "crowd_pose_kpt", "crowdpose"):
+        for with_center in (False, True):
+            assert flip_index_for(dataset, with_center) == j_flip_index_for(dataset, with_center)
+    with pytest.raises(ValueError):
+        flip_index_for("mpii")
