@@ -1,1 +1,2 @@
-"""Stage aggregation and the engine: serving and the eval protocol."""
+"""Stage aggregation and the engine (serving and the eval protocol), and
+the training losses."""

@@ -1,2 +1,2 @@
-"""Affine transforms and the resize ladder, dataset tables and synthetic
-scenes, without cv2."""
+"""Affine transforms and the resize ladder, dataset tables, synthetic
+scenes and the training input pipeline, without cv2."""

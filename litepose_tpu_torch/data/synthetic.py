@@ -1,5 +1,5 @@
 """Synthetic multi-person scenes without cv2 (counterpart of
-``bench_scene_batch`` in ``litepose_tpu/data/synthetic.py``).
+``bench_scene_batch`` and ``make_fixture`` in ``litepose_tpu/data/synthetic.py``).
 
 Stick figures on dark noise: the same random draws as the JAX package, so
 the same people stand at the same joint positions; the lines and dots are
@@ -11,7 +11,7 @@ detections rather than noise.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -87,3 +87,59 @@ def bench_scene_batch(batch: int, size: int, num_joints: int = 14,
         out[b] = img
         gts.append(people)
     return (out, gts) if return_gt else out
+
+
+class SyntheticSource:
+    """An in-memory training source (``data.dataset.TrainPipeline``'s
+    protocol) of ``make_fixture``'s scenes: the same draws, so the same
+    people at the same joints, without the JPEG round trip of its files.
+
+    Every person has all joints visible and there are no crowd regions (the
+    ``with_edge_cases=False`` set), so the ignore mask is all True.
+    n_people_range / size_range: (lo, hi) scene density and person size;
+    None keeps ``make_fixture``'s defaults (1-3 people, size 30-60)."""
+
+    def __init__(self, n_images: int = 4, h: int = 160, w: int = 200, num_joints: int = 14,
+                 seed: int = 0, n_people_range: Optional[Tuple[int, int]] = None,
+                 size_range: Optional[Tuple[float, float]] = None):
+        rng = np.random.default_rng(seed)
+        self.h, self.w = h, w
+        self.images: List[np.ndarray] = []
+        self.annotations: List[List[dict]] = []
+        ann_id = 1
+        for i in range(n_images):
+            img = rng.uniform(0, 60, (h, w, 3)).astype(np.uint8)
+            if n_people_range is not None:
+                n_people = int(rng.integers(n_people_range[0], n_people_range[1] + 1))
+            else:
+                n_people = 1 + i % 3
+            anns = []
+            for _ in range(n_people):
+                cx = rng.uniform(40, w - 40)
+                cy = rng.uniform(40, h - 40)
+                size = rng.uniform(*(size_range or (30, 60)))
+                pts = person_keypoints(rng, cx, cy, size, num_joints)
+                draw_person(img, pts)
+                x0, y0 = pts[:, 0].min(), pts[:, 1].min()
+                x1, y1 = pts[:, 0].max(), pts[:, 1].max()
+                bbox = [float(x0), float(y0), float(x1 - x0), float(y1 - y0)]
+                anns.append({
+                    "id": ann_id, "image_id": i, "category_id": 1,
+                    "keypoints": [float(v) for v in pts.reshape(-1)],
+                    "num_keypoints": num_joints, "bbox": bbox,
+                    "area": float(bbox[2] * bbox[3]), "iscrowd": 0,
+                    "segmentation": [[float(v) for v in (x0, y0, x1, y0, x1, y1, x0, y1)]],
+                })
+                ann_id += 1
+            self.images.append(img)
+            self.annotations.append(anns)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def load_raw(self, idx: int):
+        """(image RGB uint8, annotations, image_id)."""
+        return self.images[idx], list(self.annotations[idx]), idx
+
+    def ignore_mask(self, image_id: int) -> np.ndarray:
+        return np.ones((self.h, self.w), bool)

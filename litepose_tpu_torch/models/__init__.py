@@ -1,1 +1,2 @@
-"""LitePose as ``nn.Module``s, and the weight bridge from the JAX pytrees."""
+"""LitePose as ``nn.Module``s, its seeded init, and the weight bridge to
+and from the JAX pytrees."""

@@ -19,6 +19,7 @@ the one part of the JAX package the port imports.
 
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -120,22 +121,40 @@ class LitePose(nn.Module):
         if with_skips:
             self.final_raw = nn.ModuleList(final_raw)
 
-    def fold_bn_(self) -> "LitePose":
-        """Fold every conv's eval BN into it once, in ``compute_dtype``
-        (non-persistent buffers, so they move with ``.to`` and stay out of
-        the state dict).  Folding at every call instead adds 1.5-3% to the
-        b64 forward and doubles the b1 latency on an H100 (PERF.md).  Call
-        it again after the weights change; training mode ignores it."""
+    def _conv_bn_pairs(self):
         pairs = [(self.first[2], self.first[3])]
         for m in self.modules():
             if isinstance(m, L.ConvBNReLU6):
                 pairs.append((m[0], m[1]))
             elif isinstance(m, L.SepConv2d):
                 pairs.append((m.conv[0], m.conv[1]))
-        for conv, bn in pairs:
+        return pairs
+
+    def fold_bn_(self) -> "LitePose":
+        """Fold every conv's eval BN into it once, in ``compute_dtype``
+        (non-persistent buffers, so they move with ``.to`` and stay out of
+        the state dict).  Folding at every call instead adds 1.5-3% to the
+        b64 forward and doubles the b1 latency on an H100 (PERF.md).  Call
+        it again after writing weights in eval mode; ``train`` handles the
+        switches between the modes."""
+        for conv, bn in self._conv_bn_pairs():
             w, bias = L.fold_bn(conv, bn, self.compute_dtype)
             conv.register_buffer("folded_w", w, persistent=False)
             conv.register_buffer("folded_b", bias, persistent=False)
+        return self
+
+    def train(self, mode: bool = True) -> "LitePose":
+        """Switching to training drops the folded weights, which every
+        optimizer step would leave stale; switching back to eval folds the
+        trained weights again, so eval never serves the old ones."""
+        was_training = self.training
+        super().train(mode)
+        if mode:
+            for conv, _ in self._conv_bn_pairs():
+                for name in ("folded_w", "folded_b"):
+                    conv._buffers.pop(name, None)
+        elif was_training:
+            self.fold_bn_()
         return self
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -166,3 +185,28 @@ class LitePose(nn.Module):
                     out = out + self.final_raw[i - 1](input_raw, dt)
                 outputs.append(out.to(self.out_dtype))
         return outputs
+
+
+def init_litepose(spec: ModelSpec, arch: ArchConfig, generator: torch.Generator,
+                  with_skips: bool = True, **model_kw) -> LitePose:
+    """A freshly initialized ``LitePose`` in training mode, on the CPU
+    (counterpart of ``init_litepose``, ``litepose_tpu/models/litepose.py``).
+
+    Every kernel is drawn from ``generator`` uniformly in +-sqrt(3 / fan_in),
+    the JAX bound (``litepose_tpu/models/layers.py:_fan_in_uniform``), which
+    is sqrt(3) times PyTorch's default conv init; fan_in is
+    ``k*k*cin/groups`` for a conv and ``k*k*cout`` for a transposed conv.
+    BNs start at scale 1, bias 0, mean 0, var 1.  Draws are made on the CPU,
+    so one seed gives the same weights whatever device the model goes to."""
+    model = LitePose(spec, arch, with_skips=with_skips, **model_kw)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
+            elif isinstance(m, nn.Conv2d):
+                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+            else:
+                continue
+            bound = math.sqrt(3.0 / fan_in)
+            m.weight.uniform_(-bound, bound, generator=generator)
+    return model.train()
