@@ -59,13 +59,18 @@ class PoseEngine:
       flags: stage aggregation and flip-test configuration.
       group: decode thresholds and joint order.
       config: EngineConfig.
-      device: where the batch runs; CUDA launches the kernels, CPU runs
-        their plain twins.
+      device: where the batch runs, the card unless the caller names
+        another: CUDA launches the kernels, ``device="cpu"`` runs their
+        plain twins.  A CUDA device without a card raises here.
     """
 
     def __init__(self, apply_fn: Callable[[torch.Tensor], List[torch.Tensor]],
                  flags: InferenceFlags, group: GroupParams,
-                 config: EngineConfig, device="cpu"):
+                 config: EngineConfig, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PoseEngine: no CUDA device; pass device=\"cpu\" to run "
+                               "the plain twins on the host")
         self.apply_fn = apply_fn
         if config.decode_bf16:
             flags = flags._replace(decode_bf16=True)
@@ -73,7 +78,6 @@ class PoseEngine:
         self.group_cfg = StaticGroupCfg.from_params(
             group, assignment=config.assignment, topk_method=config.topk_method)
         self.config = config
-        self.device = torch.device(device)
         self._infer: Dict[Tuple[Tuple[int, int], Optional[Tuple[int, int]]], Callable] = {}
 
     def infer_fn(self, in_hw: Tuple[int, int],

@@ -42,19 +42,23 @@ NVCC_FLAGS = (
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_INT_P = ctypes.POINTER(ctypes.c_int)
 _GROUP_ARGS = (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                _INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR)
 _SIGNATURES = {
-    # det, is_bf16, sup, val, pos, planes, H, W, M, r, stream
-    "lp_nms_topk": (_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                    _INT, _PTR),
+    # det, is_bf16, band_keys, val, pos, planes, H, W, M, r, stream
+    "lp_nms_topk": (_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
+    # H, W, M, r -> the band count, or -1 / -2 for a shape it does not take
+    "lp_nms_topk_bands": (_INT, _INT, _INT, _INT),
+    # r, widest plane, merge keys, largest M (outputs)
+    "lp_nms_topk_limits": (_INT, _INT_P, _INT_P, _INT_P),
     # tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
     # tag_thr, use_val, ignore_too_much, stream
     "lp_group_greedy": _GROUP_ARGS,
     "lp_group_hungarian": _GROUP_ARGS,
-    # need, prev, det, tag, pos, B, K, P, T, HW, stream
-    "lp_refine_argmax": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                         _INT, _PTR),
+    # need, prev, det, tag, best, pos, B, K, P, T, HW, vec, stream
+    "lp_refine_argmax": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                         _INT, _INT, _INT, _PTR),
 }
 
 

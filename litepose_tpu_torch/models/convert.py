@@ -17,8 +17,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from litepose_tpu.arch.schema import ArchConfig
-
+from ..arch import ArchConfig
 from .litepose import LitePose, ModelSpec
 
 CONV, DECONV, VEC = "conv", "deconv", "vec"

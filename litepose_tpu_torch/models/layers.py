@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..arch import make_divisible
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
@@ -105,8 +107,6 @@ class InvBottleneck(nn.Module):
     def __init__(self, cin: int, cout: int, ker: int = 3, exp: int = 6,
                  stride: int = 1):
         super().__init__()
-        from litepose_tpu.arch.schema import make_divisible
-
         feat = make_divisible(round(cin * exp), 8)
         self.inv = ConvBNReLU6(cin, feat, 1)
         self.depth_conv = ConvBNReLU6(feat, feat, ker, stride, groups=feat)

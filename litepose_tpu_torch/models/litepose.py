@@ -12,8 +12,8 @@
 
 Parameter names are the reference layout that
 ``litepose_tpu.models.torch_convert.litepose_to_torch`` emits.  Archs come
-from the jax-free ``litepose_tpu.arch`` (``get_arch`` is re-exported here),
-the one part of the JAX package the port imports.
+from the port's own ``litepose_tpu_torch.arch`` (``get_arch`` is re-exported
+here).
 ``with_skips=False`` drops every raw branch (the "w/o fusion" ablation).
 """
 
@@ -25,9 +25,8 @@ from typing import List, NamedTuple, Tuple
 import torch
 import torch.nn as nn
 
-from litepose_tpu.arch.schema import ArchConfig
-from litepose_tpu.arch.zoo import get_arch  # noqa: F401  (the port's zoo lookup)
-
+from ..arch import ArchConfig
+from ..arch import get_arch  # noqa: F401  (the zoo lookup, re-exported)
 from . import layers as L
 
 STEM_CHANNELS = 32

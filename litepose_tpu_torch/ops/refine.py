@@ -84,6 +84,8 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
         raise ValueError(f"the kernel takes tag dim 1 or 2, got {T}")
     if H * W >= HUGE_I:
         raise ValueError(f"plane of {H}x{W} pixels overflows int32 indices")
+    if B * K > 65535:
+        raise ValueError(f"the kernel's grid takes at most 65535 planes, got {B * K}")
     if not all(t.is_contiguous() for t in (need, prev, det, tag)):
         raise ValueError("need, prev, det and tag must be contiguous")
 
@@ -92,9 +94,12 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
     lib = build.load()
     pos = torch.empty((B, K, P), dtype=torch.int32, device=det.device)
     if B * K and P:
+        # per (plane, slot) the max of a 64-bit (penalty, -index) key
+        best = torch.zeros((B, K, P), dtype=torch.int64, device=det.device)
+        vec = (H * W) % 4 == 0 and det.data_ptr() % 16 == 0 and tag.data_ptr() % 16 == 0
         err = lib.lp_refine_argmax(
             need.data_ptr(), prev.data_ptr(), det.data_ptr(), tag.data_ptr(),
-            pos.data_ptr(), B, K, P, T, H * W,
+            best.data_ptr(), pos.data_ptr(), B, K, P, T, H * W, int(vec),
             torch.cuda.current_stream(det.device).cuda_stream)
         build.check(err, "refine_argmax")
         refine_argmax.launches += 1

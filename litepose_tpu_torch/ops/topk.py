@@ -8,6 +8,7 @@ tag gather and the x/y decode around it.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -47,21 +48,33 @@ def nms_topk(det: torch.Tensor, max_people: int,
         raise ValueError(f"nms_topk runs on cpu or cuda, not {det.device}")
     if not det.is_contiguous():
         raise ValueError("det must be contiguous")
-    if H * 4 > 227 * 1024:
-        raise ValueError(f"plane height {H} exceeds the kernel's row-max buffer")
+    if B * K > 65535:
+        raise ValueError(f"the K1 kernel takes at most 65535 planes, got {B * K}")
 
     from ..kernels import build
 
     lib = build.load()
+    r = nms_kernel // 2
+    n_bands = lib.lp_nms_topk_bands(H, W, max_people, r)
+    if n_bands < 0:
+        widest, keys, max_m = (ctypes.c_int() for _ in range(3))
+        lib.lp_nms_topk_limits(r, ctypes.byref(widest), ctypes.byref(keys), ctypes.byref(max_m))
+        if n_bands == -1:
+            raise ValueError(f"plane width {W} exceeds the widest the K1 kernel takes for "
+                             f"nms_kernel={nms_kernel}: {widest.value} (a band of one row "
+                             f"and its halo in shared memory)")
+        raise ValueError(f"{H}x{W} planes with max_people={max_people} exceed the K1 "
+                         f"kernel's merge of {keys.value} band keys a plane "
+                         f"(max_people <= {max_m.value})")
     val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
     pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
-    sup = torch.empty((B, K, H, W), dtype=torch.float32, device=det.device)
     if B * K:
+        band_keys = torch.empty((B * K, n_bands, max_people), dtype=torch.int64,
+                                device=det.device)
         stream = torch.cuda.current_stream(det.device).cuda_stream
         err = lib.lp_nms_topk(
-            det.data_ptr(), int(det.dtype == torch.bfloat16), sup.data_ptr(),
-            val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people,
-            nms_kernel // 2, stream)
+            det.data_ptr(), int(det.dtype == torch.bfloat16), band_keys.data_ptr(),
+            val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r, stream)
         build.check(err, "nms_topk")
         nms_topk.launches += 1
     return val, pos

@@ -24,7 +24,7 @@ from litepose_tpu_torch.train import checkpoint as tck
 from litepose_tpu_torch.train import optim
 from litepose_tpu_torch.train.trainer import StepFns
 
-from test_torch_train import IMG, OUT, WD, _arch, _batch, _port_model
+from test_torch_train import IMG, OUT, WD, _arch, _batch, _port_arch, _port_model
 
 SGD_LR = 0.02  # one cross-package step then moves parameters by ~1e-3, differs by ~1e-6
 
@@ -169,7 +169,7 @@ def jax_tree(tree):
 
 def _port_view(ts):
     """The port's training state as flax state dicts of numpy leaves."""
-    params, state = jax_from_state_dict(ts.model.state_dict(), ModelSpec(), _arch())
+    params, state = jax_from_state_dict(ts.model.state_dict(), ModelSpec(), _port_arch())
     return params, state, tck.opt_state_tree(ts)
 
 
@@ -221,7 +221,7 @@ def test_jax_checkpoint_resumes_in_port(jax_setup, tmp_path, name):
     ts = tck.auto_resume(str(tmp_path), _port_ts(params, state, name))
     assert (ts.step, ts.epoch, ts.best_perf) == (3, 1, -1.0)
     assert ts.scheduler.last_epoch == 3
-    want_sd = state_dict_from_jax(jax.tree.map(np.asarray, jp), state, ModelSpec(), _arch())
+    want_sd = state_dict_from_jax(jax.tree.map(np.asarray, jp), state, ModelSpec(), _port_arch())
     for k, v in ts.model.state_dict().items():
         if k.endswith("num_batches_tracked"):  # JAX keeps none; the port counts the steps
             assert int(v) == 3, k
@@ -234,7 +234,7 @@ def test_jax_checkpoint_resumes_in_port(jax_setup, tmp_path, name):
                         serialization.to_state_dict(jax.tree.map(np.asarray, opt_state)))
     if name == "adam":
         mu = named_from_tree(jax.tree.map(np.asarray, opt_state[0].mu), entries(ModelSpec(),
-                                                                                _arch()))
+                                                                                _port_arch()))
         st = ts.optimizer.state[ts.model.first[0][0].weight]
         assert float(st["step"]) == 3
         assert torch.equal(st["exp_avg"], torch.from_numpy(mu["first.0.0.weight"].copy()))

@@ -18,6 +18,7 @@ from litepose_tpu.models.torch_convert import litepose_to_torch
 from litepose_tpu_torch.models.convert import litepose_from_jax, state_dict_from_jax
 from litepose_tpu_torch.models.litepose import LitePose, ModelSpec
 from litepose_tpu_torch.train import checkpoint as ckpt
+from test_torch_arch import port_arch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = ["bench_ckpt.msgpack", "bench_ckpt_xs.msgpack"]
@@ -46,16 +47,16 @@ def test_state_dict_matches_litepose_to_torch(with_skips):
     rng = np.random.default_rng(0)
     params, state = _random_bn(params, rng), _random_bn(state, rng)
     want = litepose_to_torch(params, state, JSpec(), arch, with_skips=with_skips)
-    got = state_dict_from_jax(params, state, ModelSpec(), arch, with_skips=with_skips)
+    got = state_dict_from_jax(params, state, ModelSpec(), port_arch(arch), with_skips=with_skips)
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k].dtype == torch.from_numpy(np.array(v)).dtype, k
         assert got[k].shape == v.shape, k
         assert np.asarray(got[k]).tobytes() == np.asarray(v).tobytes(), k
     # the module's own names are exactly the reference layout
-    model = LitePose(ModelSpec(), arch, with_skips=with_skips)
+    model = LitePose(ModelSpec(), port_arch(arch), with_skips=with_skips)
     assert sorted(model.state_dict()) == sorted(want)
-    litepose_from_jax(params, state, ModelSpec(), arch, with_skips=with_skips)
+    litepose_from_jax(params, state, ModelSpec(), port_arch(arch), with_skips=with_skips)
 
 
 @pytest.mark.parametrize("name", ASSETS)

@@ -36,6 +36,7 @@ from litepose_tpu_torch.models.litepose import ModelSpec
 from litepose_tpu_torch.data.synthetic import bench_scene_batch as port_scenes
 from litepose_tpu_torch.ops.group import GroupParams, StaticGroupCfg, joint_order_for, parse_batch
 from litepose_tpu_torch.train.checkpoint import load_params
+from test_torch_arch import port_arch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT_XS = os.path.join(REPO, "assets", "bench_ckpt_xs.msgpack")
@@ -67,11 +68,11 @@ def slice_pair():
     j_engine = JPoseEngine(apply_fn, params, state, JFlags(**FLAGS),
                            JGroupParams(num_joints=14, detection_threshold=0.1),
                            JEngineConfig(**SERVING))
-    model = litepose_from_jax(params, state, ModelSpec(num_joints=14), arch,
+    model = litepose_from_jax(params, state, ModelSpec(num_joints=14), port_arch(arch),
                               compute_dtype=torch.float32)
     engine = PoseEngine(model, InferenceFlags(**FLAGS),
                         GroupParams(num_joints=14, detection_threshold=0.1),
-                        EngineConfig(**SERVING))
+                        EngineConfig(**SERVING), device="cpu")
     images = bench_scene_batch(2, SIZE)
     det, tag = engine.run_batch(images)[:2]
     return j_engine, engine, images, (det.numpy(), tag.numpy())
@@ -118,7 +119,7 @@ _NO_JAX = """
 import sys
 import numpy as np
 import torch
-from litepose_tpu.arch.manager import ArchManager
+from litepose_tpu_torch.arch import get_arch
 from litepose_tpu_torch.core.engine import EngineConfig, PoseEngine
 from litepose_tpu_torch.core.inference import InferenceFlags
 from litepose_tpu_torch.data.flip import flip_index_for
@@ -126,13 +127,13 @@ from litepose_tpu_torch.models.litepose import LitePose, ModelSpec
 from litepose_tpu_torch.ops.group import GroupParams
 
 torch.manual_seed(0)
-arch = ArchManager().fixed_sample(reso=128, ratio=0.25)
+arch = get_arch("auto-XS").with_img_size(128)
 model = LitePose(ModelSpec(), arch).eval()
 flags = InferenceFlags(14, (True, True), (True, False), (True, True), (True, False))
 cfg = EngineConfig(input_size=128, assignment="greedy", topk_method="approx",
                    with_adjust=False, with_refine=False, project2image=False,
                    decode_bf16=True)
-engine = PoseEngine(model, flags, GroupParams(num_joints=14), cfg)
+engine = PoseEngine(model, flags, GroupParams(num_joints=14), cfg, device="cpu")
 images = np.random.default_rng(0).integers(0, 255, (2, 128, 128, 3), dtype=np.uint8)
 people, scores, n = engine.process_batch_square(images)
 assert people.shape == (2, 40, 14, 4) and np.isfinite(people).all(), people.shape
@@ -140,25 +141,40 @@ assert people.shape == (2, 40, 14, 4) and np.isfinite(people).all(), people.shap
 # on a non-square image
 evaluator = PoseEngine(model, flags._replace(flip_test=True,
                                              flip_index=tuple(flip_index_for("crowd_pose"))),
-                       GroupParams(num_joints=14), EngineConfig(input_size=128))
+                       GroupParams(num_joints=14), EngineConfig(input_size=128), device="cpu")
 found, scores = evaluator.process(images[0][:90])
 assert len(found) == len(scores), (len(found), len(scores))
 assert all(p.shape == (14, 5) and np.isfinite(p).all() for p in found)
 assert "jax" not in sys.modules and "cv2" not in sys.modules, "jax or cv2 imported"
+jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
+assert not jax_package, jax_package
 print("ok", n.tolist())
 """
 
 
 def test_port_runs_without_jax():
-    """The port imports neither jax nor cv2: a fresh interpreter runs the
-    CPU engine's serving path and eval ``process`` on a non-square image,
-    then checks ``sys.modules``."""
+    """The port imports neither jax, cv2 nor any module of the JAX package
+    ``litepose_tpu``: a fresh interpreter builds an arch from the port's own
+    zoo, runs the CPU engine's serving path and eval ``process`` on a
+    non-square image, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+def test_engine_defaults_to_the_card():
+    """Without a ``device`` argument the engine targets CUDA; with no card
+    it raises at construction instead of running on the host."""
+    args = (lambda x: [], InferenceFlags(**FLAGS), GroupParams(), EngineConfig())
+    if torch.cuda.is_available():
+        assert PoseEngine(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PoseEngine(*args)
+    assert PoseEngine(*args, device="cpu").device == torch.device("cpu")
 
 
 def test_scene_renderer_matches_cv2_scenes():
@@ -201,10 +217,11 @@ def _engines(scale_factors=(1.0,)):
     j_engine = JPoseEngine(apply_fn, params, state, JFlags(**EVAL_FLAGS),
                            JGroupParams(**GROUP),
                            JEngineConfig(input_size=EVAL_SIZE, scale_factors=scale_factors))
-    model = litepose_from_jax(params, state, ModelSpec(num_joints=14), arch,
+    model = litepose_from_jax(params, state, ModelSpec(num_joints=14), port_arch(arch),
                               compute_dtype=torch.float32)
     engine = PoseEngine(model, InferenceFlags(**EVAL_FLAGS), GroupParams(**GROUP),
-                        EngineConfig(input_size=EVAL_SIZE, scale_factors=scale_factors))
+                        EngineConfig(input_size=EVAL_SIZE, scale_factors=scale_factors),
+                        device="cpu")
     return j_engine, engine
 
 
@@ -280,10 +297,10 @@ def test_with_center_process_matches_jax():
 
     j_engine = JPoseEngine(apply_fn, params, state, JFlags(**flags), JGroupParams(**GROUP),
                            JEngineConfig(input_size=EVAL_SIZE))
-    model = litepose_from_jax(params, state, ModelSpec(num_joints=15), arch,
+    model = litepose_from_jax(params, state, ModelSpec(num_joints=15), port_arch(arch),
                               compute_dtype=torch.float32)
     engine = PoseEngine(model, InferenceFlags(**flags), GroupParams(**GROUP),
-                        EngineConfig(input_size=EVAL_SIZE))
+                        EngineConfig(input_size=EVAL_SIZE), device="cpu")
     image = np.random.default_rng(1).integers(0, 255, (100, 120, 3)).astype(np.uint8)
     want = j_engine.process(image)
     _assert_same_people(want, engine.process(image))

@@ -25,6 +25,7 @@ from litepose_tpu_torch.core.inference import InferenceFlags, make_infer_fn, nor
 from litepose_tpu_torch.data.flip import flip_index_for
 from litepose_tpu_torch.models.convert import litepose_from_jax
 from litepose_tpu_torch.models.litepose import ModelSpec
+from test_torch_arch import port_arch
 
 ARCH = ArchConfig(
     img_size=64, input_channel=8, deconv_setting=(8, 8, 8),
@@ -73,7 +74,7 @@ def test_infer_matches_jax(case):
 
     model = litepose_from_jax(params, state,
                               ModelSpec(num_joints=nj, tag_per_joint=per_joint),
-                              ARCH, compute_dtype=torch.float32)
+                              port_arch(ARCH), compute_dtype=torch.float32)
     infer = make_infer_fn(model, InferenceFlags(**flag_args), project_hw=project_hw)
     with torch.no_grad():
         det, tag = infer(torch.from_numpy(images))

@@ -21,6 +21,7 @@ from litepose_tpu.models.litepose import apply_litepose, init_litepose
 from litepose_tpu_torch.models.convert import litepose_from_jax
 from litepose_tpu_torch.models.litepose import ModelSpec
 from litepose_tpu_torch.train.checkpoint import load_params
+from test_torch_arch import port_arch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +66,7 @@ def _forward_pair(name, dtype):
     policy = Policy.exact() if dtype == torch.float32 else Policy()
     want, _ = apply_litepose(params, state, jnp.asarray(x), JSpec(), arch,
                              with_skips=with_skips, policy=policy, out_dtype=jdt)
-    model = litepose_from_jax(params, state, ModelSpec(), arch, with_skips,
+    model = litepose_from_jax(params, state, ModelSpec(), port_arch(arch), with_skips,
                               compute_dtype=dtype, out_dtype=dtype)
     with torch.no_grad():
         got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
@@ -101,7 +102,7 @@ def test_stage_output_shapes():
     arch = ArchManager().fixed_sample(reso=128, ratio=0.25)
     from litepose_tpu_torch.models.litepose import LitePose
 
-    model = LitePose(ModelSpec(), arch).eval()
+    model = LitePose(ModelSpec(), port_arch(arch)).eval()
     with torch.no_grad():
         outs = model(torch.zeros(1, 3, 128, 96))
     assert [tuple(o.shape) for o in outs] == [(1, 28, 32, 24), (1, 14, 64, 48)]
@@ -115,7 +116,7 @@ def test_fold_cache_follows_weight_updates():
     arch = ArchManager().fixed_sample(reso=128, ratio=0.25)
     from litepose_tpu_torch.models.litepose import LitePose
 
-    model = LitePose(ModelSpec(), arch, compute_dtype=torch.float32).eval()
+    model = LitePose(ModelSpec(), port_arch(arch), compute_dtype=torch.float32).eval()
     x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         a = model(x)[1]  # folded at every call

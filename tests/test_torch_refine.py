@@ -124,6 +124,96 @@ def test_round_is_half_to_even():
     assert pos.item() == 1
 
 
+# -- the tiled kernel's reduction, emulated in torch -------------------------
+
+
+def penalty_keys(penal: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit key (orderable_u32(penal) << 32) | (0xFFFFFFFF -
+    idx), -0.0 taken as +0.0, as int64 with the top bit flipped (int64 order
+    = the key's unsigned order)."""
+    bits = penal.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    ord_ = torch.where(bits >= 0x80000000, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    return ((ord_ - 2**31) << 32) | (0xFFFFFFFF - idx.long())
+
+
+def tiled_refine_argmax(need, prev, det, tag, threads=256, vec=4, loads=4):
+    """K4 as the kernel reduces it: tiles of threads * vec * loads pixels;
+    a thread walks its pixels (16-byte load l holds pixels base + (l *
+    threads + t) * vec + [0, vec)) in increasing index order keeping the
+    first strict float maximum; its key; the tile's largest key (the warp
+    shuffle and the CTA's reduction); the largest over tiles (atomicMax);
+    pos = 0xFFFFFFFF - low 32 bits where needed, else 0."""
+    from litepose_tpu_torch.ops.refine import _tag_distance
+
+    B, K, H, W = det.shape
+    P, HW = need.shape[2], H * W
+    tile = threads * vec * loads
+    n_tiles = -(-HW // tile)
+    e = torch.arange(vec * loads)
+    t = torch.arange(threads)
+    # (tiles, threads, elements) flat indices, in each thread's walk order
+    idx = (torch.arange(n_tiles)[:, None, None] * tile
+           + ((e // vec)[None, None, :] * threads + t[None, :, None]) * vec
+           + (e % vec)[None, None, :])
+    valid = idx < HW
+    pos = torch.zeros((B, K, P), dtype=torch.int32)
+    for b, k, p in need.nonzero().tolist():
+        penal = (det[b, k] - torch.round(_tag_distance(tag[b, k][None],
+                                                       prev[b, p][None])[0])).flatten()
+        pv = penal[idx.clamp(max=HW - 1)]
+        best_v, best_i = pv[..., 0], idx[..., 0]
+        for j in range(1, vec * loads):
+            better = valid[..., j] & (pv[..., j] > best_v)
+            best_v = torch.where(better, pv[..., j], best_v)
+            best_i = torch.where(better, idx[..., j], best_i)
+        keys = torch.where(valid[..., 0], penalty_keys(best_v, best_i),
+                           torch.iinfo(torch.int64).min)
+        winner = keys.amax(1).amax(0)
+        pos[b, k, p] = int(0xFFFFFFFF - (winner & 0xFFFFFFFF))
+    return pos
+
+
+def _refine_inputs(seed, T, need_kind, H=12, W=21, B=2, K=3, P=6, signed_zeros=False):
+    rng = np.random.default_rng(seed)
+    det = rng.integers(0, 4, (B, K, H, W)).astype(np.float32) * 0.25  # ties
+    tag = rng.integers(-6, 7, (B, K, T, H, W)).astype(np.float32) * 0.25  # x.5
+    prev = rng.integers(-4, 5, (B, P, T)).astype(np.float32) * 0.25
+    p_need = {"none": 0.0, "sparse": 0.3, "full": 1.0}[need_kind]
+    need = (rng.random((B, K, P)) < p_need).astype(np.int32)
+    if signed_zeros:
+        # every penalty at most 0; the maxima are -0.0 (det -0.0, rint(tt) 0)
+        # before +0.0 in flat order, which a raw float key would rank lower
+        det[:] = -1.0
+        det[..., 2, 3:] = -0.0
+        det[..., 5, :] = 0.0
+        tag[:] = prev[0, 0][None, None, :, None, None]
+        prev[:] = prev[0, 0]
+    return [torch.from_numpy(a) for a in (need, prev, det, tag)]
+
+
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("need_kind", ["none", "sparse", "full"])
+@pytest.mark.parametrize("geometry", [(256, 4, 4), (4, 2, 2), (8, 4, 1)])
+def test_tiled_emulation_matches_twin(T, need_kind, geometry):
+    """The kernel's tile size and small ones (many tiles, a partial last
+    tile), planted ties and tag distances on x.5: equal to the twin."""
+    threads, vec, loads = geometry
+    args = _refine_inputs(T, T, need_kind)
+    want = refine_argmax_ref(*args)
+    assert torch.equal(tiled_refine_argmax(*args, threads, vec, loads), want)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_tiled_emulation_signed_zeros(T):
+    """-0.0 and +0.0 maxima: the twin's float compare ties them, so the
+    lowest index wins; the key must map -0.0 to +0.0 to agree."""
+    args = _refine_inputs(5, T, "full", signed_zeros=True)
+    want = refine_argmax_ref(*args)
+    assert (want == 2 * 21 + 3).all()  # the first -0.0, before the +0.0 row
+    assert torch.equal(tiled_refine_argmax(*args, 4, 2, 2), want)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -151,3 +241,20 @@ def test_kernel_matches_twin_on_card(cuda, T, need_kind, hw):
     torch.cuda.synchronize()
     assert refine_argmax.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("hw", [(12, 21), (448, 448), (45, 103)])
+def test_kernel_signed_zeros_and_mixed_need_on_card(cuda, T, hw):
+    """-0.0 maxima before +0.0 ones; one plane with all 40 slots needed
+    beside planes with none; sizes that leave a partial tile and that rule
+    out 16-byte loads."""
+    args = _refine_inputs(7, T, "none", H=hw[0], W=hw[1], B=2, K=14, P=40,
+                          signed_zeros=True)
+    args[0][1, 3] = 1  # all 40 slots of one plane, the other 27 planes none
+    want = refine_argmax_ref(*args)
+    got = refine_argmax(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert (want[1, 3] == 2 * hw[1] + 3).all()

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from litepose_tpu.arch.manager import ArchManager
+from test_torch_arch import port_arch
 
 from litepose_tpu_torch.core.losses import LossConfig
 from litepose_tpu_torch.models.convert import (entries, jax_from_state_dict, litepose_from_jax,
@@ -78,6 +79,11 @@ def _arch():
     return dataclasses.replace(arch, backbone_setting=tuple(
         dataclasses.replace(s, num_blocks=2, block_setting=s.block_setting[:2])
         for s in arch.backbone_setting))
+
+
+def _port_arch():
+    """``_arch()`` as the port's ``ArchConfig``."""
+    return port_arch(_arch())
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +160,7 @@ def jax_steps(jax_weights):
 
 
 def _port_model(params, state, compute_dtype=torch.float32):
-    return litepose_from_jax(params, state, ModelSpec(), _arch(),
+    return litepose_from_jax(params, state, ModelSpec(), _port_arch(),
                              compute_dtype=compute_dtype).train()
 
 
@@ -164,8 +170,8 @@ def _port_step(params, state, img_size=None, teacher=None, device="cpu", remat=F
     model = _port_model(params, state).to(device, dtype)
     model.compute_dtype = model.out_dtype = dtype
     if teacher is not None and dtype != torch.float32:
-        teacher = litepose_from_jax(*jax_from_state_dict(teacher.state_dict(), ModelSpec(), _arch()),
-                                    ModelSpec(), _arch(), compute_dtype=dtype,
+        teacher = litepose_from_jax(*jax_from_state_dict(teacher.state_dict(), ModelSpec(), _port_arch()),
+                                    ModelSpec(), _port_arch(), compute_dtype=dtype,
                                     out_dtype=dtype).to(dtype)
     opt, sched = optim.make_optimizer("sgd", model.parameters(),
                                       optim.multistep_lr(LR, [100], 0.1, 10), weight_decay=WD)
@@ -201,14 +207,14 @@ def _check_against_jax(want, ts, metrics, grads, exact_grads):
     assert sorted(metrics) == sorted(want["metrics"])
     for k, v in want["metrics"].items():
         np.testing.assert_allclose(metrics[k], v, rtol=1e-5, err_msg=k)
-    table = entries(ModelSpec(), _arch())
+    table = entries(ModelSpec(), _port_arch())
     g_tree = tree_from_named(grads, table)
     x_tree = tree_from_named({n: g.double().numpy() for n, g in exact_grads.items()}, table)
     for (path, g), (_, w), (_, x) in zip(_leaves(g_tree), _leaves(want["grads"]), _leaves(x_tree)):
         name = jax.tree_util.keystr(path)
         assert _rel(g, x) <= 1e-4, (name, _rel(g, x))
         assert _rel(g, w) <= 1e-4 + _rel(w, x), (name, _rel(g, w), _rel(w, x))
-    p_tree, s_tree = jax_from_state_dict(ts.model.state_dict(), ModelSpec(), _arch())
+    p_tree, s_tree = jax_from_state_dict(ts.model.state_dict(), ModelSpec(), _port_arch())
     assert len(_leaves(s_tree)) == len(_leaves(want["state"]))
     for (path, s), (_, w) in zip(_leaves(s_tree), _leaves(want["state"])):
         np.testing.assert_allclose(s, w, atol=2e-4, rtol=0, err_msg=jax.tree_util.keystr(path))
@@ -227,7 +233,7 @@ def test_step_matches_jax(jax_weights, jax_steps, case, img_size):
 
 def test_distillation_step_matches_jax(jax_weights, jax_steps):
     (params, state), (t_params, t_state) = jax_weights
-    teacher = litepose_from_jax(t_params, t_state, ModelSpec(), _arch(),
+    teacher = litepose_from_jax(t_params, t_state, ModelSpec(), _port_arch(),
                                 compute_dtype=torch.float32)
     ts, metrics, grads = _port_step(params, state, teacher=teacher)
     assert "distill" in metrics and metrics["distill"] > 0
@@ -272,7 +278,7 @@ def test_remat_step_equals_plain(jax_weights):
 
 def test_loss_falls_over_four_steps():
     torch.manual_seed(0)
-    model = init_litepose(ModelSpec(), _arch(), torch.Generator().manual_seed(0))
+    model = init_litepose(ModelSpec(), _port_arch(), torch.Generator().manual_seed(0))
     opt, sched = optim.make_optimizer("adam", model.parameters(),
                                       optim.multistep_lr(1e-3, [100], 0.1, 10))
     sfns = StepFns(LossConfig(num_joints=14), IMG, OUT, torch.device("cpu"))
@@ -296,9 +302,9 @@ def test_init_bounds_match_jax():
     from litepose_tpu_torch.models.convert import state_dict_from_jax
 
     jsd = state_dict_from_jax(*jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), JSpec(),
-                                                                _arch())), ModelSpec(), _arch())
-    model = init_litepose(ModelSpec(), _arch(), torch.Generator().manual_seed(0))
-    again = init_litepose(ModelSpec(), _arch(), torch.Generator().manual_seed(0))
+                                                                _arch())), ModelSpec(), _port_arch())
+    model = init_litepose(ModelSpec(), _port_arch(), torch.Generator().manual_seed(0))
+    again = init_litepose(ModelSpec(), _port_arch(), torch.Generator().manual_seed(0))
     assert model.training
     for name, t in model.state_dict().items():
         j = jsd[name]
@@ -324,7 +330,7 @@ def test_eval_after_training_serves_the_trained_weights(jax_weights):
     """The stale-fold trap: a model folded for eval, trained, then switched
     back to eval serves what a model rebuilt from its saved weights serves."""
     (params, state), _ = jax_weights
-    model = litepose_from_jax(params, state, ModelSpec(), _arch(), compute_dtype=torch.float32)
+    model = litepose_from_jax(params, state, ModelSpec(), _port_arch(), compute_dtype=torch.float32)
     x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 3, IMG, IMG)).astype(np.float32))
     with torch.no_grad():
         before = model(x)[1]
@@ -334,8 +340,8 @@ def test_eval_after_training_serves_the_trained_weights(jax_weights):
     sfns.get()(init_train_state(model, opt, sched), _batch())
     assert model.training and not hasattr(model.first[2], "folded_w")
     model.eval()
-    p_tree, s_tree = jax_from_state_dict(model.state_dict(), ModelSpec(), _arch())
-    rebuilt = litepose_from_jax(p_tree, s_tree, ModelSpec(), _arch(), compute_dtype=torch.float32)
+    p_tree, s_tree = jax_from_state_dict(model.state_dict(), ModelSpec(), _port_arch())
+    rebuilt = litepose_from_jax(p_tree, s_tree, ModelSpec(), _port_arch(), compute_dtype=torch.float32)
     with torch.no_grad():
         after, want = model(x)[1], rebuilt(x)[1]
     assert torch.equal(after, want)
@@ -373,7 +379,7 @@ def test_step_on_card_matches_cpu(cuda):
     a float64 step."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = init_litepose(ModelSpec(), _arch(), torch.Generator().manual_seed(0),
+    model = init_litepose(ModelSpec(), _port_arch(), torch.Generator().manual_seed(0),
                           compute_dtype=torch.float32)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():  # BN affines off identity, as the JAX-held tests have them
@@ -384,7 +390,7 @@ def test_step_on_card_matches_cpu(cuda):
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     results = []
     for device, dtype in (("cpu", torch.float32), (cuda, torch.float32), ("cpu", torch.float64)):
-        m = init_litepose(ModelSpec(), _arch(), torch.Generator().manual_seed(1),
+        m = init_litepose(ModelSpec(), _port_arch(), torch.Generator().manual_seed(1),
                           compute_dtype=dtype, out_dtype=dtype)
         m.load_state_dict(sd)
         m.to(device, dtype)
