@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_UINT = ctypes.c_uint
 _FLOAT = ctypes.c_float
 _INT_P = ctypes.POINTER(ctypes.c_int)
 _GROUP_ARGS = (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
@@ -56,6 +57,8 @@ _SIGNATURES = {
     # tag_thr, use_val, ignore_too_much, stream
     "lp_group_greedy": _GROUP_ARGS,
     "lp_group_hungarian": _GROUP_ARGS,
+    # lo, hi, bad, stream: the card check of the grouping kernels' sqrt_fast
+    "lp_group_sqrt_mismatches": (_UINT, _UINT, _PTR, _PTR),
     # need, prev, det, tag, best, pos, B, K, P, T, HW, vec, stream
     "lp_refine_argmax": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                          _INT, _INT, _INT, _PTR),
@@ -73,20 +76,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(extra_flags: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the sources unless this exact build exists.
+def build(extra_flags: tuple = ()) -> tuple[Path, float, str]:
+    """Compile the sources unless this exact build exists.  ``extra_flags``
+    (e.g. ``-DLP_GROUP_CLOCK`` for ``tools/group_clock.py``) go to every
+    nvcc and into the build's hash.
 
     Returns (library path, seconds spent compiling, compiler log); seconds
     is 0.0 when an existing build was reused."""
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = BUILD_ROOT / source_hash(extra_flags)
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.is_file():
@@ -97,7 +102,8 @@ def build() -> tuple[Path, float, str]:
     # one nvcc per source, all at once, then one link
     compiles = []
     for name in SOURCES:
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / (name + ".o")), str(CSRC / name)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(out_dir / (name + ".o")),
+               str(CSRC / name)]
         compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
     log = ""

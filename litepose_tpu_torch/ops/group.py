@@ -16,12 +16,13 @@ mask, Hungarian rows by the score-sorted prefix they form.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .hungarian import BIG, greedy_assign, hungarian_prefix
-from .refine import refine_batch
+from .refine import refine_batch, sqrt_rn
 from .topk import top_k_peaks_batch
 
 # Padding and clipping of the assignment cost, as in the JAX decode
@@ -103,13 +104,16 @@ class StaticGroupCfg(NamedTuple):
         )
 
 
-def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor,
-                 cfg: StaticGroupCfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor, cfg: StaticGroupCfg,
+                 chain: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-joint clustering over a batch (plain twin of K2 and K3).
 
     tag_k (B, K, M, T) f32, val_k (B, K, M) f32 (sorted descending per
     joint) -> (cid (B, K, M) int32: cluster of each peak, -1 for none;
-    n_cl (B,) int32).  Cluster ids are in creation order."""
+    n_cl (B,) int32).  Cluster ids are in creation order.  chain: an
+    optional (B,) int64 tensor that counts each image's greedy rounds or JV
+    sweeps and augment steps over all joint steps (``greedy_assign``,
+    ``hungarian_prefix``)."""
     B, K, M, T = tag_k.shape
     P = cfg.max_people  # assignment columns
     PC = cfg.max_clusters  # cluster table capacity
@@ -139,7 +143,7 @@ def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor,
             acc = d[..., 0] * d[..., 0]
             for t in range(1, T):
                 acc = acc + d[..., t] * d[..., t]
-            diff = torch.sqrt(acc)  # (B, M, P)
+            diff = sqrt_rn(acc)  # (B, M, P)
         if cfg.use_detection_val:
             base = torch.clamp(torch.round(diff) * 100.0, max=CLIP_COST) - val[:, :, None]
         else:
@@ -149,13 +153,13 @@ def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor,
         if cfg.assignment == "greedy":
             live = mask & do_match[:, None]
             cost = torch.where(live[:, :, None], cost, torch.full_like(cost, BIG))
-            assign = greedy_assign(cost)  # (B, M), M = unassigned
+            assign = greedy_assign(cost, chain)  # (B, M), M = unassigned
         else:
             # exact prefix assignment of the full PAD-padded cost: the scores
             # are sorted, so the valid rows are the first n_valid
             # (pallas_group.py:218-225)
             n_solve = torch.where(do_match, mask.sum(1), 0)
-            assign = hungarian_prefix(cost, n_solve)
+            assign = hungarian_prefix(cost, n_solve, chain)
 
         matched = torch.gather(diff, 2, torch.clamp(assign, max=P - 1)[:, :, None])[..., 0]
         join = (do_match[:, None] & mask & (assign < G[:, None])
@@ -184,6 +188,12 @@ MAX_PEAKS = 32  # one lane per peak row
 MAX_COLUMNS = 32  # one lane per cluster column (the JV solver's M + 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _order_on(order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The joint order as an int32 tensor on ``device``, uploaded once."""
+    return torch.tensor(order, dtype=torch.int32).to(device)
+
+
 def _group_kernel(fn, entry: str, tag_k: torch.Tensor, val_k: torch.Tensor,
                   cfg: StaticGroupCfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Checks, the CPU twin, or one launch of the grouping kernel ``entry``
@@ -207,7 +217,7 @@ def _group_kernel(fn, entry: str, tag_k: torch.Tensor, val_k: torch.Tensor,
                          f"{MAX_COLUMNS} people, got {M} and {cfg.max_people}")
     if not (tag_k.is_contiguous() and val_k.is_contiguous()):
         raise ValueError("tag_k and val_k must be contiguous")
-    order = [int(k) for k in cfg.joint_order]
+    order = tuple(int(k) for k in cfg.joint_order)
     if any(not 0 <= k < K for k in order):
         raise ValueError(f"joint order {order} out of range for {K} joints")
 
@@ -215,7 +225,7 @@ def _group_kernel(fn, entry: str, tag_k: torch.Tensor, val_k: torch.Tensor,
 
     lib = build.load()
     dev = tag_k.device
-    order_t = torch.tensor(order, dtype=torch.int32).to(dev, non_blocking=True)
+    order_t = _order_on(order, dev)
     cid = torch.empty((B, K, M), dtype=torch.int32, device=dev)
     n_cl = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
@@ -338,7 +348,7 @@ def refine(people: torch.Tensor, det: torch.Tensor, tag: torch.Tensor) -> torch.
         acc = d[:, :, 0] * d[:, :, 0]
         for t in range(1, d.shape[2]):
             acc = acc + d[:, :, t] * d[:, :, t]
-        penal = det - torch.round(torch.sqrt(acc))
+        penal = det - torch.round(sqrt_rn(acc))
         pos = first_argmax(penal.reshape(B * K, H * W))
         py, px = pos // W, pos % W
         val = det_flat[bk, pos]

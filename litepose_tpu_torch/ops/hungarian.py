@@ -9,13 +9,15 @@ Jonker-Volgenant solver of the eval decode, the plain twin of K3
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 BIG = 3e38
 INF = 1e18  # the JV solver's sentinel (litepose_tpu/ops/hungarian.py:INF)
 
 
-def greedy_assign(cost: torch.Tensor) -> torch.Tensor:
+def greedy_assign(cost: torch.Tensor, chain: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched fixed-iteration greedy matching.
 
     cost: (B, M, P) float32; entries >= ``BIG`` never match (the caller sets
@@ -24,7 +26,10 @@ def greedy_assign(cost: torch.Tensor) -> torch.Tensor:
     index, then retire its row and column.  Returns (B, M) int64: the column
     of each row, M where unassigned.  This is the greedy branch of the TPU
     grouping kernel (``litepose_tpu/ops/pallas_group.py:226-241``) and the
-    plain twin of the loop inside ``csrc/group_greedy.cu``."""
+    plain twin of the loop inside ``csrc/group_greedy.cu``.
+
+    chain: an optional (B,) int64 tensor; each image's rounds that assign a
+    pair (the kernel's dependent chain) are added to it."""
     B, M, P = cost.shape
     dev = cost.device
     c = cost.reshape(B, M * P).clone()
@@ -37,6 +42,8 @@ def greedy_assign(cost: torch.Tensor) -> torch.Tensor:
         cmin = c.min(dim=1).values  # (B,)
         first = torch.where(c == cmin[:, None], flat_ids, M * P).min(dim=1).values
         ok = cmin < BIG
+        if chain is not None:
+            chain += ok
         m_sel = first // P
         g_sel = first % P
         hit = ok[:, None] & (row_ids[None, :] == m_sel[:, None])
@@ -46,7 +53,8 @@ def greedy_assign(cost: torch.Tensor) -> torch.Tensor:
     return assign
 
 
-def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
+def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor,
+                     chain: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact min-cost assignment of the first ``n_rows[b]`` rows of each
     square cost matrix to distinct columns.
 
@@ -63,7 +71,10 @@ def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
     The grouping's ties are degenerate, so the same op order gives the same
     assignment, not merely an optimal one.  An image whose search has ended
     changes nothing in later sweeps, so the loops stop when every image of
-    the batch has ended."""
+    the batch has ended.
+
+    chain: an optional (B,) int64 tensor; each image's sweeps and augment
+    steps (the kernel's dependent chain) are added to it."""
     B, n, n2 = cost.shape
     if n != n2:
         raise ValueError(f"hungarian_prefix expects square costs, got {tuple(cost.shape)}")
@@ -92,6 +103,8 @@ def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
             if bool(done.all()):
                 break
             act = ~done
+            if chain is not None:
+                chain += act
             used = used | ((cols == j0[:, None]) & act[:, None])
             i0 = p.gather(1, j0[:, None])[:, 0]
             cur = a[bidx, i0] - u.gather(1, i0[:, None]) - v
@@ -113,6 +126,8 @@ def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
             act_b = (j0 != 0) & act_row
             if not bool(act_b.any()):
                 break
+            if chain is not None:
+                chain += act_b
             j1 = way.gather(1, j0[:, None])[:, 0]
             p_j1 = p.gather(1, j1[:, None])
             p = torch.where((cols == j0[:, None]) & act_b[:, None], p_j1, p)

@@ -16,6 +16,14 @@ import torch
 HUGE_I = 2**31 - 1
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as ``__fsqrt_rn`` in the
+    kernels, CUDA's ``torch.sqrt`` and ``jnp.sqrt`` give it.  PyTorch's CPU
+    ``torch.sqrt`` of float32 is not on every host (on AVX512 some results
+    lie one ulp off); the float64 root rounded to float32 is."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def _tag_distance(tag: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """tag (n, T, H, W), prev (n, T) -> (n, H, W): |d| for T = 1, else
     sqrt(d0*d0 + d1*d1 + ...) with one rounding per multiply and add."""
@@ -25,7 +33,7 @@ def _tag_distance(tag: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     acc = d[:, 0] * d[:, 0]
     for t in range(1, d.shape[1]):
         acc = acc + d[:, t] * d[:, t]
-    return torch.sqrt(acc)
+    return sqrt_rn(acc)
 
 
 def first_argmax(x: torch.Tensor) -> torch.Tensor:
