@@ -46,6 +46,18 @@ class EngineConfig:
     topk_method: str = "exact"  # or "approx"; both run exact top-M here
     decode_bf16: bool = False
 
+    @staticmethod
+    def from_config(cfg) -> "EngineConfig":
+        """The eval configuration ``tools/valid.py`` builds from the
+        experiment config."""
+        return EngineConfig(
+            input_size=cfg.DATASET.INPUT_SIZE,
+            scale_factors=tuple(cfg.TEST.SCALE_FACTOR),
+            with_adjust=cfg.TEST.ADJUST,
+            with_refine=cfg.TEST.REFINE,
+            project2image=cfg.TEST.PROJECT2IMAGE,
+        )
+
 
 Result = Tuple[List[np.ndarray], List[float]]
 
@@ -159,14 +171,14 @@ class PoseEngine:
             det, _, people, scores, n = self.run_batch(img[None])
             return self._finalize_one(people[0].cpu().numpy(), scores[0].cpu().numpy(),
                                       int(n[0]), center, scale, tuple(det.shape[-2:]))
-        if 1.0 not in scales:
+        if len(scales) > 1 and 1.0 not in scales:
             raise ValueError(f"multi-scale eval takes its tags at scale 1.0, "
                              f"got scales {scales}")
 
-        # heatmaps accumulate over the scales, tags come from scale 1.  With
-        # projection every scale is already at the base size; without it the
-        # first (largest) scale's grid is the accumulation grid (reference
-        # aggregate_results)
+        # heatmaps accumulate over the scales, tags come from scale 1 (from
+        # the only scale when there is one).  With projection every scale is
+        # already at the base size; without it the first (largest) scale's
+        # grid is the accumulation grid (reference aggregate_results)
         base, _, _ = self._ladder(image_rgb_u8.shape[:2], 1.0)
         project_hw = (int(base[1]), int(base[0])) if self.config.project2image else None
         accum_hw = project_hw
@@ -180,7 +192,7 @@ class PoseEngine:
                 if tuple(heat.shape[-2:]) != accum_hw:
                     heat = resize_bilinear(heat, accum_hw)
                 heat_sum = heat if heat_sum is None else heat_sum + heat
-                if s == 1.0:
+                if s == 1.0 or len(scales) == 1:
                     if tuple(tag.shape[-2:]) != accum_hw:
                         n, j, t = tag.shape[:3]
                         tag = resize_bilinear(tag.reshape(n, j * t, *tag.shape[3:]),

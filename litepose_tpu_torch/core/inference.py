@@ -43,6 +43,22 @@ class InferenceFlags(NamedTuple):
     decode_bf16: bool = False
     flip_mode: str = "concat"
 
+    @staticmethod
+    def from_config(cfg, flip_index: Sequence[int]) -> "InferenceFlags":
+        """The experiment config's decode flags (the JAX ``from_config``;
+        ``TEST.PROJECT2IMAGE`` goes to ``EngineConfig`` here)."""
+        return InferenceFlags(
+            num_joints=cfg.DATASET.NUM_JOINTS,
+            with_heatmaps_loss=tuple(cfg.LOSS.WITH_HEATMAPS_LOSS),
+            with_ae_loss=tuple(cfg.LOSS.WITH_AE_LOSS),
+            test_with_heatmaps=tuple(cfg.TEST.WITH_HEATMAPS),
+            test_with_ae=tuple(cfg.TEST.WITH_AE),
+            tag_per_joint=cfg.MODEL.TAG_PER_JOINT,
+            flip_test=cfg.TEST.FLIP_TEST,
+            flip_index=tuple(flip_index),
+            ignore_center=bool(cfg.DATASET.WITH_CENTER and cfg.TEST.IGNORE_CENTER),
+        )
+
 
 @functools.lru_cache(maxsize=None)
 def device_constant(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

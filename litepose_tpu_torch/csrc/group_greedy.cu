@@ -70,7 +70,7 @@ __device__ __forceinline__ void row_first_min(const float (&row)[kMaxCols], unsi
 
 template <int T>
 struct GreedyAssign {
-  __device__ int assign(const Step& st, const Clusters& cl, int lane, int M, int P,
+  __device__ int assign(const Step& st, const Clusters<T>& cl, int lane, int M, int P,
                         int use_val) const {
     // rows below the detection threshold, and every row of a step that does
     // not match, cost BIG (the twin's row masking), as do columns >= P
@@ -113,10 +113,11 @@ template <int T>
 __global__ void __launch_bounds__(32)
     group_greedy_kernel(const float* __restrict__ tag, const float* __restrict__ val,
                         const int* __restrict__ order, int* __restrict__ cid,
-                        int* __restrict__ ncl, int K, int M, int n_steps, int P, int PC,
-                        float det_thr, float tag_thr, int use_val, int ignore_too_much) {
+                        int* __restrict__ ncl, int K, int M, int nt, int n_steps, int P,
+                        int PC, float det_thr, float tag_thr, int use_val,
+                        int ignore_too_much) {
   GreedyAssign<T> mode;
-  group_image<T>(mode, tag, val, order, cid, ncl, K, M, n_steps, P, PC, det_thr, tag_thr,
+  group_image<T>(mode, tag, val, order, cid, ncl, K, M, nt, n_steps, P, PC, det_thr, tag_thr,
                  use_val, ignore_too_much);
 }
 
@@ -147,15 +148,15 @@ extern "C" int lp_group_sqrt_mismatches(unsigned lo, unsigned hi, unsigned long 
 
 // tag: (B, K, M, T) fp32, val: (B, K, M) fp32, order: (n_steps,) int32 on
 // the device; cid: (B, K, M) int32, ncl: (B,) int32.  Requires M <= 32,
-// P <= 32, T in {1, 2} and K*M*(T+1) + n_steps <= 10240.  Returns a CUDA
-// error code (0 = launched).
+// P <= 32, 1 <= T <= kMaxTagDim and K*M*(T+1) + n_steps <= 10240.  Returns
+// a CUDA error code (0 = launched).
 extern "C" int lp_group_greedy(const float* tag, const float* val, const int* order,
                                int* cid, int* ncl, int B, int K, int M, int T, int n_steps,
                                int P, int PC, float det_thr, float tag_thr, int use_val,
                                int ignore_too_much, void* stream) {
-  return launch_group(group_greedy_kernel<1>, group_greedy_kernel<2>, tag, val, order, cid,
-                      ncl, B, K, M, T, n_steps, P, PC, det_thr, tag_thr, use_val,
-                      ignore_too_much, stream);
+  return launch_group(group_greedy_kernel<1>, group_greedy_kernel<2>, group_greedy_kernel<0>,
+                      tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
+                      tag_thr, use_val, ignore_too_much, stream);
 }
 
 #ifdef LP_GROUP_CLOCK

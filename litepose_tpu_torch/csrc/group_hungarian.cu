@@ -71,7 +71,7 @@ struct HungarianAssign {
   float (&cost)[kMaxRows][kMaxCols + 1];
   int (&inverse)[kMaxRows];
 
-  __device__ int assign(const Step& st, const Clusters& cl, int lane, int M, int P,
+  __device__ int assign(const Step& st, const Clusters<T>& cl, int lane, int M, int P,
                         int use_val) {
     float row[kMaxCols];
     cost_row<T>(st, cl, use_val, row);
@@ -165,13 +165,13 @@ template <int T>
 __global__ void __launch_bounds__(32)
     group_hungarian_kernel(const float* __restrict__ tag, const float* __restrict__ val,
                            const int* __restrict__ order, int* __restrict__ cid,
-                           int* __restrict__ ncl, int K, int M, int n_steps, int P,
-                           int PC, float det_thr, float tag_thr, int use_val,
+                           int* __restrict__ ncl, int K, int M, int nt, int n_steps,
+                           int P, int PC, float det_thr, float tag_thr, int use_val,
                            int ignore_too_much) {
   __shared__ float cost[kMaxRows][kMaxCols + 1];
   __shared__ int inverse[kMaxRows];
   HungarianAssign<T> mode{cost, inverse};
-  group_image<T>(mode, tag, val, order, cid, ncl, K, M, n_steps, P, PC, det_thr, tag_thr,
+  group_image<T>(mode, tag, val, order, cid, ncl, K, M, nt, n_steps, P, PC, det_thr, tag_thr,
                  use_val, ignore_too_much);
 }
 
@@ -179,15 +179,15 @@ __global__ void __launch_bounds__(32)
 
 // tag: (B, K, M, T) fp32, val: (B, K, M) fp32 (sorted descending per
 // joint), order: (n_steps,) int32 on the device; cid: (B, K, M) int32, ncl:
-// (B,) int32.  Requires M == P <= 31, T in {1, 2} and K*M*(T+1) + n_steps
-// <= 10240.  Returns a CUDA error code (0 = launched).
+// (B,) int32.  Requires M == P <= 31, 1 <= T <= kMaxTagDim and
+// K*M*(T+1) + n_steps <= 10240.  Returns a CUDA error code (0 = launched).
 extern "C" int lp_group_hungarian(const float* tag, const float* val, const int* order,
                                   int* cid, int* ncl, int B, int K, int M, int T,
                                   int n_steps, int P, int PC, float det_thr, float tag_thr,
                                   int use_val, int ignore_too_much, void* stream) {
-  return launch_group(group_hungarian_kernel<1>, group_hungarian_kernel<2>, tag, val, order,
-                      cid, ncl, B, K, M, T, n_steps, P, PC, det_thr, tag_thr, use_val,
-                      ignore_too_much, stream);
+  return launch_group(group_hungarian_kernel<1>, group_hungarian_kernel<2>,
+                      group_hungarian_kernel<0>, tag, val, order, cid, ncl, B, K, M, T,
+                      n_steps, P, PC, det_thr, tag_thr, use_val, ignore_too_much, stream);
 }
 
 #ifdef LP_GROUP_CLOCK

@@ -7,7 +7,7 @@
 // every person slot p of image b with need[b][k][p] != 0,
 //   pos[b][k][p] = the flat row-major argmax over the (H, W) plane of
 //     det[b][k] - rint(tt),  tt = |tag - prev[b][p]|          (T = 1)
-//                            tt = sqrt(d0*d0 + d1*d1)         (T = 2)
+//                            tt = sqrt(d0*d0 + d1*d1 + ...)   (T >= 2)
 //   with ties to the lowest flat index; slots with need == 0 hold 0.
 //
 // What bounds it on an H100: the read of det and tag, once per plane that
@@ -31,6 +31,11 @@
 // The key's maximum is the largest penalty at the lowest index whatever the
 // order the CTAs run in.  A second launch writes pos = need ? index : 0.
 //
+// Tag dims: the instances T = 1 and T = 2 hold the tile's tags in registers;
+// the instance T = 0 takes any tag dim nt <= kMaxTagDim at run time (the
+// Pallas kernel's static loop over T) and reads a pixel's tags t >= 1 from
+// global memory (L1 and L2 serve the repeats) for each listed slot, summing
+// d_t * d_t in tag order as the Pallas kernel does.
 // Exactness: the round-to-nearest intrinsics keep nvcc from contracting
 // d0*d0 + d1*d1 into an FMA (the library is also built with --fmad=false);
 // rintf rounds half to even, as torch.round and jnp.round do.  The twin
@@ -52,6 +57,7 @@ constexpr int kLoads = 4;                            // loads per thread and inp
 constexpr int kPix = kVec * kLoads;                  // pixels per thread
 constexpr int kTile = kThreads * kPix;               // pixels per CTA
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxTagDim = 8;                        // the any-T instance's widest tag
 
 // penal's float order as an unsigned order, -0.0 taken as +0.0
 __device__ __forceinline__ unsigned orderable(float v) {
@@ -73,11 +79,22 @@ __device__ __forceinline__ u64 warp_max(u64 v) {
   return v;
 }
 
+// The penalty of a pixel whose first tag is t0 (T = 0: its tags t >= 1 at
+// tag_px[t * HW], the slot's mean at q[t]).
 template <int T>
 __device__ __forceinline__ float penalty(float x, float t0, float t1, float q0,
-                                         float q1) {
+                                         float q1, const float* tag_px = nullptr,
+                                         int HW = 0, const float* q = nullptr, int nt = 0) {
   float tt;
-  if (T == 1) {
+  if (T == 0) {
+    float d = __fsub_rn(t0, q0);
+    float acc = __fmul_rn(d, d);
+    for (int t = 1; t < nt; ++t) {
+      d = __fsub_rn(__ldg(tag_px + static_cast<size_t>(t) * HW), q[t]);
+      acc = __fadd_rn(acc, __fmul_rn(d, d));
+    }
+    tt = __fsqrt_rn(acc);
+  } else if (T == 1) {
     tt = fabsf(__fsub_rn(t0, q0));
   } else {
     const float d0 = __fsub_rn(t0, q0);
@@ -101,12 +118,14 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ det,
                               const float* __restrict__ tag,
                               u64* __restrict__ best, int P, int K, int HW,
-                              int vec) {
+                              int vec, int nt) {
+  constexpr int S = T == 0 ? kMaxTagDim : 2;  // prev_s entries a slot
   extern __shared__ __align__(16) unsigned char smem[];
   u64* red = reinterpret_cast<u64*>(smem);                   // kWarps x P
-  float* prev_s = reinterpret_cast<float*>(red + kWarps * P);  // P x 2
-  int* slot_of = reinterpret_cast<int*>(prev_s + 2 * P);     // P
+  float* prev_s = reinterpret_cast<float*>(red + kWarps * P);  // P x S
+  int* slot_of = reinterpret_cast<int*>(prev_s + S * P);     // P
   __shared__ int n_listed;
+  if (T != 0) nt = T;
 
   const size_t bk = blockIdx.y;  // b * K + k
   const int b = static_cast<int>(bk / K);
@@ -114,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int* need_bk = need + bk * P;
-  const float* prev_b = prev + static_cast<size_t>(b) * P * T;
+  const float* prev_b = prev + static_cast<size_t>(b) * P * nt;
 
   // the plane's needed slots, in slot order
   if (warp == 0) {
@@ -126,8 +145,12 @@ __global__ void __launch_bounds__(kThreads)
       if (on) {
         const int at = n + __popc(mask & ((1u << lane) - 1u));
         slot_of[at] = s;
-        prev_s[2 * at] = prev_b[s * T];
-        prev_s[2 * at + 1] = T == 2 ? prev_b[s * T + 1] : 0.0f;
+        if (T == 0) {
+          for (int t = 0; t < nt; ++t) prev_s[S * at + t] = prev_b[s * nt + t];
+        } else {
+          prev_s[S * at] = prev_b[s * T];
+          prev_s[S * at + 1] = T == 2 ? prev_b[s * T + 1] : 0.0f;
+        }
       }
       n += __popc(mask);
     }
@@ -141,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   const int base = blockIdx.x * kTile;
   const bool full = base + kTile <= HW;
   const float* det_p = det + bk * HW;
-  const float* tag_p = tag + bk * T * HW;
+  const float* tag_p = tag + bk * nt * HW;
   float x[kPix], t0[kPix], t1[kPix];
 #pragma unroll
   for (int l = 0; l < kLoads; ++l) {
@@ -164,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
         if (T == 2) t1[l * kVec + v] = in ? tag_p[HW + p + v] : 0.0f;
       }
     }
-    if (T == 1) {
+    if (T != 2) {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) t1[l * kVec + v] = 0.0f;
     }
@@ -174,13 +197,17 @@ __global__ void __launch_bounds__(kThreads)
   const int first = pixel_of(base, tid, 0);
   const bool has_first = first < HW;
   for (int si = 0; si < n; ++si) {
-    const float q0 = prev_s[2 * si], q1 = prev_s[2 * si + 1];
-    float bv = penalty<T>(x[0], t0[0], t1[0], q0, q1);
+    const float* q = prev_s + S * si;
+    const float q0 = q[0], q1 = q[1];
+    // T = 0 reads tags t >= 1 in the plane, so a pixel past it reads pixel 0's
+    float bv = penalty<T>(x[0], t0[0], t1[0], q0, q1, tag_p + (has_first ? first : 0), HW, q,
+                          nt);
     int bi = first;
 #pragma unroll
     for (int e = 1; e < kPix; ++e) {
-      const float pv = penalty<T>(x[e], t0[e], t1[e], q0, q1);
       const int idx = pixel_of(base, tid, e);
+      const float pv = penalty<T>(x[e], t0[e], t1[e], q0, q1, tag_p + (idx < HW ? idx : 0),
+                                  HW, q, nt);
       if (pv > bv && (full || idx < HW)) {
         bv = pv;
         bi = idx;
@@ -217,31 +244,31 @@ __global__ void refine_finalize_kernel(const int* __restrict__ need,
 // need: (B, K, P) int32, prev: (B, P, T) fp32, det: (B, K, H, W) fp32, tag:
 // (B, K, T, H, W) fp32, all contiguous on the device; best: (B, K, P) uint64
 // scratch, zero-filled by the caller; pos: (B, K, P) int32.  HW = H * W <
-// 2^31 - 1, B * K <= 65535, T in {1, 2}; vec != 0 when HW % 4 == 0 and det
-// and tag are 16-byte aligned.  Returns cudaGetLastError() after the two
-// launches.
+// 2^31 - 1, B * K <= 65535, 1 <= T <= kMaxTagDim; vec != 0 when HW % 4 == 0
+// and det and tag are 16-byte aligned.  Returns cudaErrorInvalidValue for a
+// T it does not take, else cudaGetLastError() after the two launches.
 extern "C" int lp_refine_argmax(const int* need, const float* prev,
                                 const float* det, const float* tag, void* best,
                                 int* pos, int B, int K, int P, int T, int HW,
                                 int vec, void* stream) {
+  if (T < 1 || T > kMaxTagDim) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* scratch = static_cast<u64*>(best);
   const dim3 grid((HW + kTile - 1) / kTile, B * K);
-  const size_t smem = static_cast<size_t>(P) * (kWarps * sizeof(u64) + 2 * sizeof(float) +
+  const int slots = T <= 2 ? 2 : kMaxTagDim;  // prev_s entries a slot
+  const size_t smem = static_cast<size_t>(P) * (kWarps * sizeof(u64) + slots * sizeof(float) +
                                                 sizeof(int));
+  typedef void (*Kernel)(const int*, const float*, const float*, const float*, u64*, int, int,
+                         int, int, int);
+  const Kernel kernel = T == 1   ? refine_argmax_tile_kernel<1>
+                        : T == 2 ? refine_argmax_tile_kernel<2>
+                                 : refine_argmax_tile_kernel<0>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        T == 1 ? refine_argmax_tile_kernel<1> : refine_argmax_tile_kernel<2>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (T == 1) {
-    refine_argmax_tile_kernel<1><<<grid, kThreads, smem, s>>>(need, prev, det, tag,
-                                                              scratch, P, K, HW, vec);
-  } else {
-    refine_argmax_tile_kernel<2><<<grid, kThreads, smem, s>>>(need, prev, det, tag,
-                                                              scratch, P, K, HW, vec);
-  }
+  kernel<<<grid, kThreads, smem, s>>>(need, prev, det, tag, scratch, P, K, HW, vec, T);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n = B * K * P;

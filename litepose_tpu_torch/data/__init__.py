@@ -1,2 +1,3 @@
-"""Affine transforms and the resize ladder, dataset tables, synthetic
-scenes and the training input pipeline, without cv2."""
+"""Affine transforms and the resize ladder, COCO annotation IO, JPEG
+decoding, OKS evaluation, datasets on disk, synthetic scenes and the
+training input pipeline, without cv2."""

@@ -1,6 +1,10 @@
-"""The training input pipeline, host side (counterpart of ``TrainPipeline``
-and ``make_batch_iterator`` in ``litepose_tpu/data/dataset.py``, which
-needs cv2 to decode images and rasterize polygons).
+"""COCO-format datasets on disk and the training input pipeline, host side
+(counterpart of ``PoseDataset``, ``TrainPipeline`` and
+``make_batch_iterator`` in ``litepose_tpu/data/dataset.py``, without cv2).
+
+``PoseDataset`` reads a COCO / CrowdPose keypoint annotation file and its
+JPEGs (``data.jpeg``, equal to cv2's decode), converts predictions to COCO
+results and scores them by OKS (``data.eval_oks``).
 
 A pipeline reads any source with the protocol
 
@@ -11,21 +15,25 @@ A pipeline reads any source with the protocol
 
 augments each item with a per-item RNG seeded by ``(seed, epoch, idx)``,
 and builds the per-scale heatmaps, masks and AE joint indices, bit-equal
-to the JAX pipeline on the same source.  ``data.synthetic.SyntheticSource``
-is such a source, held in memory; a COCO source on disk waits for a JPEG
-decoder and a polygon rasterizer that need no cv2.
+to the JAX pipeline on the same source.  ``PoseDataset`` is such a source
+on disk; ``data.synthetic.SyntheticSource`` one held in memory.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .coco_io import CocoAnnotations
+from .eval_oks import KeypointEvaluator
 from .flip import flip_index_for
+from .jpeg import decode_jpeg, jpeg_size
 from .targets import HeatmapGenerator, JointsGenerator, ScaleAwareHeatmapGenerator
 from .transforms import TrainTransform
 
@@ -89,6 +97,103 @@ def get_joints(anno: List[dict], num_joints: int, with_center: bool = False,
                 sigma = int(np.round(sigma + 0.5))
             joints[i, :, 3] = sigma
     return joints
+
+
+class PoseDataset:
+    """A COCO-format keypoints dataset on disk (train or eval).
+
+    Args:
+      ann_file: annotation JSON (COCO format; CrowdPose uses the same).
+      image_dir: directory of the image files (JPEG).
+      num_joints: 17 (COCO) / 14 (CrowdPose) (+1 with center).
+      style: 'coco' | 'crowdpose' (the eval sigmas and AP buckets).
+      filter_for_train: drop the images without annotations (with
+        ``remove_images_without_annotations``), as for training."""
+
+    def __init__(self, ann_file: str, image_dir: str, num_joints: int, style: str = "coco",
+                 with_center: bool = False, remove_images_without_annotations: bool = True,
+                 filter_for_train: bool = True):
+        self.coco = CocoAnnotations(ann_file)
+        self.image_dir = image_dir
+        self.num_joints = num_joints
+        self.with_center = with_center
+        self.num_joints_without_center = num_joints - 1 if with_center else num_joints
+        self.style = style
+        self.ids = self.coco.image_ids
+        if remove_images_without_annotations and filter_for_train:
+            self.ids = [i for i in self.ids if self.coco.annotations_for(i)]
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def image_path(self, image_id: int) -> str:
+        return os.path.join(self.image_dir, self.coco.image_info(image_id)["file_name"])
+
+    def load_raw(self, idx: int):
+        """(image RGB uint8, annotations, image_id); raises if the decoded
+        image's size is not the annotation's."""
+        image_id = self.ids[idx]
+        image = decode_jpeg(self.image_path(image_id))
+        if image.shape[:2] != self.image_size(idx):
+            raise ValueError(f"{self.image_path(image_id)}: decoded size {image.shape[:2]} "
+                             f"!= annotated {self.image_size(idx)}")
+        return image, self.coco.annotations_for(image_id), image_id
+
+    def image_size(self, idx: int) -> Tuple[int, int]:
+        """Source (height, width) from the annotation, no pixel read (the
+        batched eval buckets the whole split by warped shape up front)."""
+        info = self.coco.image_info(self.ids[idx])
+        return (info["height"], info["width"])
+
+    def check_image_sizes(self, indices: Sequence[int]) -> None:
+        """Raise unless every image's header size (``jpeg_size``, after EXIF
+        orientation) is its annotated size: a mismatch would warp with the
+        wrong affine."""
+        bad = []
+        for i in indices:
+            path = self.image_path(self.ids[i])
+            size = jpeg_size(path)
+            if size != self.image_size(i):
+                bad.append((path, size, self.image_size(i)))
+        if bad:
+            raise ValueError(f"{len(bad)} images differ from their annotated (height, "
+                             f"width), e.g. {bad[:3]}")
+
+    def ignore_mask(self, image_id: int) -> np.ndarray:
+        """(H, W) bool, True where the loss applies (``CocoAnnotations``)."""
+        return self.coco.ignore_mask(image_id)
+
+    def get_joints(self, anno: List[dict], scale_aware_sigma=False, base_size=256.0,
+                   base_sigma=2.0, int_sigma=False) -> np.ndarray:
+        return get_joints(anno, self.num_joints, self.with_center, scale_aware_sigma,
+                          base_size, base_sigma, int_sigma)
+
+    # -- evaluation ---------------------------------------------------------
+
+    def to_coco_results(self, preds: List[List[np.ndarray]], scores: List[List[float]]):
+        """(image x person x (K, >=3)) predictions -> COCO results records
+        (reference conversion, COCODataset.py:176-291)."""
+        results = []
+        for idx, people in enumerate(preds):
+            image_id = self.ids[idx]
+            for pid, person in enumerate(people):
+                kp = np.asarray(person)[: self.num_joints_without_center, :3]
+                results.append({
+                    "image_id": int(image_id),
+                    "category_id": 1,
+                    "keypoints": [float(v) for v in kp.reshape(-1)],
+                    "score": float(scores[idx][pid]),
+                })
+        return results
+
+    def evaluate(self, preds, scores, output_dir: Optional[str] = None) -> Dict[str, float]:
+        """OKS AP/AR stats; the results JSON goes to ``output_dir`` when given."""
+        results = self.to_coco_results(preds, scores)
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            with open(os.path.join(output_dir, "keypoint_results.json"), "w") as f:
+                json.dump(results, f)
+        return KeypointEvaluator(self.coco, style=self.style).evaluate(results)
 
 
 class TrainPipeline:

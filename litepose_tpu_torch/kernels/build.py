@@ -3,12 +3,15 @@
 Counterpart of ``litepose_tpu/ops/runtime.py`` (which picks the Pallas
 execution mode): here the choice is made by the tensor's device in each
 wrapper, and this module only turns ``csrc/*.cu`` into one shared library
-with a plain C interface.
+with a plain C interface.  It also builds the host library (the JPEG
+decoder ``csrc/jpeg_decode.cpp`` and the polygon fill ``csrc/poly_fill.cpp``)
+with the host C++ compiler: ``load_host()``.
 
-The library lands in ``kernels/_build/<hash>/`` (listed in ``.gitignore``),
+The libraries land in ``kernels/_build/<hash>/`` (listed in ``.gitignore``),
 keyed by a hash of the sources and flags, so an edited source never loads a
 stale build.  Nothing is built or loaded at import time: ``load()`` runs the
-first time a wrapper sees a CUDA tensor.
+first time a wrapper sees a CUDA tensor, ``load_host()`` the first time an
+image is decoded or a polygon filled.
 """
 
 from __future__ import annotations
@@ -65,6 +68,19 @@ _SIGNATURES = {
 }
 
 
+# the host library, the JPEG decoder and the polygon fill: integer
+# arithmetic only (clipping aside), and never -ffast-math
+HOST_SOURCES = ("jpeg_decode.cpp", "poly_fill.cpp")
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+HOST_LIB_NAME = "liblitepose_host.so"
+_HOST_SIGNATURES = {
+    # data, n, out, height, width
+    "lp_jpeg_decode": (_PTR, ctypes.c_long, _PTR, _INT, _INT),
+    # mask, h, w, pts, npts, ncontours, color
+    "lp_fill_poly": (_PTR, _INT, _INT, _PTR, _PTR, _INT, _INT),
+}
+
+
 def find_nvcc() -> str:
     """``nvcc`` from PATH, else from ``$CUDA_HOME`` or the default toolkit."""
     found = shutil.which("nvcc")
@@ -76,9 +92,10 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def source_hash(extra_flags: tuple = ()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
-    for name in SOURCES + HEADERS:
+def source_hash(extra_flags: tuple = (), flags: tuple = NVCC_FLAGS,
+                sources: tuple = SOURCES + HEADERS) -> str:
+    h = hashlib.sha256(" ".join(flags + tuple(extra_flags)).encode())
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -136,6 +153,41 @@ def load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_host() -> Path:
+    """Compile the host library with the C++ compiler (``$CXX``, else
+    ``c++``) unless this exact build exists; raises if the compiler fails."""
+    out_dir = BUILD_ROOT / source_hash((), HOST_FLAGS, HOST_SOURCES)
+    lib = out_dir / HOST_LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler (c++ or $CXX): the JPEG decoder "
+                           "cannot be built")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [cxx, *HOST_FLAGS, "-o", tmp, *(str(CSRC / name) for name in HOST_SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_host() -> ctypes.CDLL:
+    """Build if needed and load the host library, with typed entry points."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, argtypes in _HOST_SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

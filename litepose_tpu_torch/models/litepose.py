@@ -43,6 +43,17 @@ class ModelSpec(NamedTuple):
     num_deconv_layers: int = 3
     deconv_kernels: Tuple[int, ...] = (4, 4, 4)
 
+    @staticmethod
+    def from_config(cfg) -> "ModelSpec":
+        return ModelSpec(
+            num_joints=cfg.MODEL.NUM_JOINTS,
+            tag_per_joint=cfg.MODEL.TAG_PER_JOINT,
+            with_heatmaps_loss=tuple(cfg.LOSS.WITH_HEATMAPS_LOSS),
+            with_ae_loss=tuple(cfg.LOSS.WITH_AE_LOSS),
+            num_deconv_layers=cfg.MODEL.EXTRA.NUM_DECONV_LAYERS,
+            deconv_kernels=tuple(cfg.MODEL.EXTRA.NUM_DECONV_KERNELS),
+        )
+
     def final_channels(self) -> List[int]:
         """Output channels of each emitted stage: joints, then tags."""
         dim_tag = self.num_joints if self.tag_per_joint else 1

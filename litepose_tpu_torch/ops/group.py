@@ -64,6 +64,26 @@ class GroupParams:
         if self.joint_order is None:
             self.joint_order = joint_order_for(self.num_joints)
 
+    @staticmethod
+    def from_config(cfg) -> "GroupParams":
+        """The experiment config's decode thresholds; a centre joint the
+        decode ignores is dropped, a kept one groups first."""
+        num_joints = cfg.DATASET.NUM_JOINTS
+        with_center_kept = bool(cfg.DATASET.WITH_CENTER and not cfg.TEST.IGNORE_CENTER)
+        if cfg.DATASET.WITH_CENTER and cfg.TEST.IGNORE_CENTER:
+            num_joints -= 1
+        return GroupParams(
+            num_joints=num_joints,
+            max_num_people=cfg.DATASET.MAX_NUM_PEOPLE,
+            detection_threshold=cfg.TEST.DETECTION_THRESHOLD,
+            tag_threshold=cfg.TEST.TAG_THRESHOLD,
+            use_detection_val=cfg.TEST.USE_DETECTION_VAL,
+            ignore_too_much=cfg.TEST.IGNORE_TOO_MUCH,
+            nms_kernel=cfg.TEST.NMS_KERNEL,
+            nms_padding=cfg.TEST.NMS_PADDING,
+            joint_order=joint_order_for(num_joints, with_center_kept),
+        )
+
 
 class StaticGroupCfg(NamedTuple):
     """The decode configuration (mirror of the JAX ``StaticGroupCfg``).
@@ -186,6 +206,7 @@ def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor, cfg: StaticGroupCfg,
 
 MAX_PEAKS = 32  # one lane per peak row
 MAX_COLUMNS = 32  # one lane per cluster column (the JV solver's M + 1)
+MAX_TAG_DIM = 8  # the widest cluster-table row (kMaxTagDim in the kernels)
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,8 +231,8 @@ def _group_kernel(fn, entry: str, tag_k: torch.Tensor, val_k: torch.Tensor,
     if tag_k.device.type != "cuda" or val_k.device != tag_k.device:
         raise ValueError(f"{fn.__name__} runs on cpu or cuda, got {tag_k.device} "
                          f"and {val_k.device}")
-    if T not in (1, 2):
-        raise ValueError(f"the kernel takes tag dim 1 or 2, got {T}")
+    if not 1 <= T <= MAX_TAG_DIM:
+        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
     if M > MAX_PEAKS or cfg.max_people > MAX_COLUMNS:
         raise ValueError(f"the kernel takes at most {MAX_PEAKS} peaks and "
                          f"{MAX_COLUMNS} people, got {M} and {cfg.max_people}")

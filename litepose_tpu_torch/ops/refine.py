@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 HUGE_I = 2**31 - 1
+MAX_TAG_DIM = 8  # kMaxTagDim in csrc/refine_argmax.cu
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -88,8 +89,8 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
         return refine_argmax_ref(need, prev, det, tag)
     if det.device.type != "cuda":
         raise ValueError(f"refine_argmax runs on cpu or cuda, not {det.device}")
-    if T not in (1, 2):
-        raise ValueError(f"the kernel takes tag dim 1 or 2, got {T}")
+    if not 1 <= T <= MAX_TAG_DIM:
+        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
     if H * W >= HUGE_I:
         raise ValueError(f"plane of {H}x{W} pixels overflows int32 indices")
     if B * K > 65535:

@@ -145,7 +145,21 @@ evaluator = PoseEngine(model, flags._replace(flip_test=True,
 found, scores = evaluator.process(images[0][:90])
 assert len(found) == len(scores), (len(found), len(scores))
 assert all(p.shape == (14, 5) and np.isfinite(p).all() for p in found)
-assert "jax" not in sys.modules and "cv2" not in sys.modules, "jax or cv2 imported"
+# the dataset eval path: a config read without yaml, a JPEG decoded and a
+# polygon filled without cv2, and the CLI's modules
+import litepose_tpu_torch.arch.manager
+import litepose_tpu_torch.data.eval_oks
+import litepose_tpu_torch.models.torch_convert
+import litepose_tpu_torch.tools.valid
+from litepose_tpu_torch.config import default_config, update_config
+from litepose_tpu_torch.data.coco_io import polygons_to_mask
+from litepose_tpu_torch.data.jpeg import decode_jpeg
+cfg = update_config(default_config(), "configs/crowd_pose/mobilenet/mobile.yaml")
+assert cfg.DATASET.NUM_JOINTS == 14 and cfg.TRAIN.LR == 4e-3
+assert decode_jpeg("litepose_tpu_torch/assets/eval_fixture/000004.jpg").shape == (427, 640, 3)
+assert polygons_to_mask([[1, 1, 8, 1, 8, 6]], 10, 10).sum() > 0
+for name in ("jax", "cv2", "yaml", "PIL"):
+    assert name not in sys.modules, name + " imported"
 jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
 assert not jax_package, jax_package
 print("ok", n.tolist())
@@ -153,10 +167,11 @@ print("ok", n.tolist())
 
 
 def test_port_runs_without_jax():
-    """The port imports neither jax, cv2 nor any module of the JAX package
-    ``litepose_tpu``: a fresh interpreter builds an arch from the port's own
-    zoo, runs the CPU engine's serving path and eval ``process`` on a
-    non-square image, then checks ``sys.modules``."""
+    """The port imports neither jax, cv2, yaml, PIL nor any module of the
+    JAX package ``litepose_tpu``: a fresh interpreter builds an arch from the
+    port's own zoo, runs the CPU engine's serving path and eval ``process``
+    on a non-square image, reads a config, decodes a JPEG, fills a polygon
+    and imports the eval CLI's modules, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
@@ -274,6 +289,19 @@ def test_multi_scale_process_matches_jax():
     and averaged, tags from scale 1."""
     j_engine, engine = _engines(scale_factors=(1.0, 0.5))
     image = _eval_scenes()[1]
+    want = j_engine.process(image)
+    _assert_same_people(want, engine.process(image))
+    _assert_same_people(want, engine.process_many([image])[0])
+
+
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_single_non_unit_scale_matches_jax(scale):
+    """One scale other than 1.0: the tags come from that scale, as in the
+    JAX engine; process_many sends the image through process.  A 256x256
+    scene: at these scales the narrow eval scenes fill all 40 clusters with
+    noise peaks whose grouping hangs on the fp32 forwards' 1e-6 difference."""
+    j_engine, engine = _engines(scale_factors=(scale,))
+    image = port_scenes(2, 256, seed=11)[1]
     want = j_engine.process(image)
     _assert_same_people(want, engine.process(image))
     _assert_same_people(want, engine.process_many([image])[0])

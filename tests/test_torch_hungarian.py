@@ -302,7 +302,7 @@ def _long_chain_inputs(seed, B, K, M, T, duplicated=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
 @pytest.mark.parametrize("duplicated", [False, True])
 @pytest.mark.parametrize("use_val,ignore_too_much", [(True, False), (False, False),
                                                      (True, True), (False, True)])

@@ -68,7 +68,7 @@ def _case(seed, B, P, K, H, W, T, ties=False):
     return people, det, tag
 
 
-@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
 @pytest.mark.parametrize("ties", [False, True])
 def test_refine_matches_jax(jref, T, ties):
     vmapped, pallas = jref
@@ -222,7 +222,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
 @pytest.mark.parametrize("need_kind", ["none", "sparse", "full"])
 @pytest.mark.parametrize("hw", [(12, 20), (448, 576)])
 def test_kernel_matches_twin_on_card(cuda, T, need_kind, hw):
@@ -244,7 +244,7 @@ def test_kernel_matches_twin_on_card(cuda, T, need_kind, hw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
 @pytest.mark.parametrize("hw", [(12, 21), (448, 448), (45, 103)])
 def test_kernel_signed_zeros_and_mixed_need_on_card(cuda, T, hw):
     """-0.0 maxima before +0.0 ones; one plane with all 40 slots needed
