@@ -144,3 +144,10 @@ def load_arch(path_or_dict: str | Dict[str, Any]) -> ArchConfig:
     if errs:
         raise ValueError("invalid arch config: " + "; ".join(errs))
     return ArchConfig.from_dict(d)
+
+
+def save_arch(arch: ArchConfig | Dict[str, Any], path: str) -> None:
+    """Write an arch (or its dict) as the reference's JSON."""
+    d = arch.to_dict() if isinstance(arch, ArchConfig) else arch
+    with open(path, "w") as f:
+        json.dump(d, f)

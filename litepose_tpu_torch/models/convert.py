@@ -1,5 +1,5 @@
-"""Weight bridge between the JAX pytrees and the port's ``LitePose``, both
-ways (counterpart of ``litepose_to_torch`` in
+"""Weight bridge between the JAX pytrees and the port's ``LitePose`` and
+``SuperLitePose``, both ways (counterpart of ``litepose_to_torch`` in
 ``litepose_tpu/models/torch_convert.py``).
 
 Layouts: a conv kernel is HWIO in JAX and OIHW here; a transposed-conv
@@ -8,6 +8,9 @@ and IOHW here (``nn.ConvTranspose2d``); BN ``scale/bias/mean/var`` become
 ``weight/bias/running_mean/running_var``.  One table of (state-dict name,
 pytree path, kind) drives both directions; the pytrees are nested dicts and
 lists of numpy arrays, the layout ``litepose_tpu`` and its checkpoints use.
+The supernet's table is the fixed net's at the maximal arch plus each
+block's ``lin5`` / ``lin3`` (``nn.Linear``, whose ``weight`` is the JAX
+``w`` as it is: both compute ``W @ flat + b``).
 """
 
 from __future__ import annotations
@@ -42,11 +45,12 @@ def _to_jax(kind: str, w) -> np.ndarray:
     return np.ascontiguousarray(w)
 
 
-def entries(spec: ModelSpec, arch: ArchConfig, with_skips: bool = True
-            ) -> List[Tuple[str, str, Path, str]]:
+def entries(spec: ModelSpec, arch: ArchConfig, with_skips: bool = True,
+            lin: bool = False) -> List[Tuple[str, str, Path, str]]:
     """Every state-dict entry in the order of the reference layout, as
     (name, pytree, path, kind): pytree is "params", "state" (BN
-    statistics) or "" (``num_batches_tracked``, which JAX does not keep)."""
+    statistics) or "" (``num_batches_tracked``, which JAX does not keep).
+    ``lin`` adds each block's ``lin5`` / ``lin3`` (the supernet's table)."""
     table: List[Tuple[str, str, Path, str]] = []
 
     def bn(prefix, path):
@@ -73,6 +77,10 @@ def entries(spec: ModelSpec, arch: ArchConfig, with_skips: bool = True
             for ours, theirs in (("inv", "inv"), ("depth", "depth_conv"),
                                  ("point", "point_conv")):
                 conv_bn(f"stage.{si}.{bi}.{theirs}", ("stage", si, bi, ours))
+            if lin:
+                for t in ("lin5", "lin3"):
+                    weight(f"stage.{si}.{bi}.{t}.weight", ("stage", si, bi, t, "w"), VEC)
+                    weight(f"stage.{si}.{bi}.{t}.bias", ("stage", si, bi, t, "b"), VEC)
 
     for i in range(spec.num_deconv_layers):
         weight(f"deconv_refined.{i}.weight", ("deconv_refined", i, "w"), DECONV)
@@ -160,3 +168,49 @@ def litepose_from_jax(params, state, spec: ModelSpec, arch: ArchConfig,
     model.load_state_dict(
         state_dict_from_jax(params, state, spec, arch, with_skips), strict=True)
     return model.eval()
+
+
+def super_entries(spec: ModelSpec, dims) -> List[Tuple[str, str, Path, str]]:
+    """The supernet's table (``dims``: its ``SuperDims``)."""
+    return entries(spec, dims.max_arch(), lin=True)
+
+
+def super_state_dict_from_jax(params, state, spec: ModelSpec, dims,
+                              keep: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """The JAX supernet (params, state) -> the port's state dict.  A JAX
+    supernet whose backbone came from a LitePose pretrain has no ``lin5`` /
+    ``lin3`` leaves (``load_pretrained_backbone`` replaces the blocks
+    whole); their entries then come from ``keep`` (a state dict of the
+    model they load into), and raise ``KeyError`` without it."""
+    trees = {"params": params, "state": state}
+    sd = {}
+    for name, which, path, kind in super_entries(spec, dims):
+        if not which:
+            v = np.zeros((), np.int64)
+        else:
+            try:
+                v = _to_torch(kind, _get(trees[which], path))
+            except KeyError:
+                if keep is None or path[-2] not in ("lin5", "lin3"):
+                    raise
+                v = keep[name].detach().cpu().numpy()
+        sd[name] = torch.from_numpy(np.array(v))
+    return sd
+
+
+def supernet_from_jax(params, state, spec: ModelSpec, dims, **model_kw):
+    """A ``SuperLitePose`` in eval mode holding JAX supernet weights."""
+    from .super_litepose import SuperLitePose
+
+    model = SuperLitePose(spec, dims, **model_kw)
+    model.load_state_dict(super_state_dict_from_jax(params, state, spec, dims,
+                                                    keep=model.state_dict()), strict=True)
+    return model.eval()
+
+
+def supernet_to_jax(model) -> Tuple[dict, dict]:
+    """The inverse of ``supernet_from_jax``: (params, model_state) pytrees
+    of fp32 numpy arrays in the JAX supernet layout."""
+    table = super_entries(model.spec, model.dims)
+    sd = model.state_dict()
+    return tree_from_named(sd, table, "params"), tree_from_named(sd, table, "state")

@@ -32,6 +32,14 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def compute_dtype(cfg) -> torch.dtype:
+    """``TPU.COMPUTE_DTYPE`` as a torch dtype (the CLIs' conv compute type)."""
+    if cfg.TPU.COMPUTE_DTYPE not in _DTYPES:
+        raise ValueError(f"TPU.COMPUTE_DTYPE {cfg.TPU.COMPUTE_DTYPE!r}: expected one of "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[cfg.TPU.COMPUTE_DTYPE]
+
+
 class EvalRun(NamedTuple):
     """What a run measured: the stats, the people and scores per image,
     and host seconds (the whole loop, and the JPEG decode within it)."""
@@ -69,10 +77,7 @@ def build_model(cfg, arch, device):
     from ..models.litepose import ModelSpec
 
     name = "pose_mobilenet" if "super" in cfg.MODEL.NAME else cfg.MODEL.NAME
-    dtype = cfg.TPU.COMPUTE_DTYPE
-    if dtype not in _DTYPES:
-        raise ValueError(f"TPU.COMPUTE_DTYPE {dtype!r}: expected one of {sorted(_DTYPES)}")
-    model = get_model(name, cfg, arch, device="cpu", compute_dtype=_DTYPES[dtype])
+    model = get_model(name, cfg, arch, device="cpu", compute_dtype=compute_dtype(cfg))
     path = cfg.TEST.MODEL_FILE
     if path:
         spec, skips = ModelSpec.from_config(cfg), model.with_skips

@@ -20,7 +20,9 @@ The writer emits the same subset, with map keys sorted as flax's
 tree.
 
 Parameters and BN statistics take the JAX pytree layout
-(``models.convert``); the optimizer state takes optax's layout, each
+(``models.convert``) of the model, a ``LitePose`` or the NAS supernet
+``SuperLitePose`` (whose layout adds each block's ``lin5`` / ``lin3``);
+the optimizer state takes optax's layout, each
 moment in its parameter's pytree layout:
 
 * adam: ``{"0": {"count", "mu", "nu"}, "1": {"count"}}``
@@ -39,8 +41,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.convert import (entries, jax_from_state_dict, named_from_tree,
-                              state_dict_from_jax, tree_from_named)
+from ..models.convert import (entries, named_from_tree, super_entries,
+                              super_state_dict_from_jax, state_dict_from_jax, tree_from_named)
 from .optim import set_schedule_step
 
 EXT_NDARRAY = 1
@@ -287,7 +289,13 @@ def init_train_state(model, optimizer, scheduler, step: int = 0, epoch: int = 0,
     return TrainState(model, optimizer, scheduler, int(step), int(epoch), float(best_perf))
 
 
+def _is_supernet(model) -> bool:
+    return hasattr(model, "dims")
+
+
 def _tables(model):
+    if _is_supernet(model):
+        return super_entries(model.spec, model.dims)
     return entries(model.spec, model.arch, model.with_skips)
 
 
@@ -350,13 +358,20 @@ def load_opt_state_tree(ts: TrainState, opt: dict) -> None:
 
 
 def _model_trees(model):
-    return jax_from_state_dict(model.state_dict(), model.spec, model.arch, model.with_skips)
+    table, sd = _tables(model), model.state_dict()
+    return tree_from_named(sd, table, "params"), tree_from_named(sd, table, "state")
 
 
 def _load_model_trees(model, params, state) -> None:
-    sd = state_dict_from_jax(params, state, model.spec, model.arch, model.with_skips)
+    """Load pytrees into the model; a supernet checkpoint without ``lin5`` /
+    ``lin3`` (a JAX supernet after a backbone pretrain) keeps the model's."""
+    if _is_supernet(model):
+        sd = super_state_dict_from_jax(params, state, model.spec, model.dims,
+                                       keep=model.state_dict())
+    else:
+        sd = state_dict_from_jax(params, state, model.spec, model.arch, model.with_skips)
     model.load_state_dict(sd, strict=True)
-    if not model.training:
+    if not model.training and hasattr(model, "fold_bn_"):
         model.fold_bn_()
 
 
@@ -405,7 +420,36 @@ def auto_resume(directory: str, template: TrainState) -> TrainState:
 
 
 def save_params(path: str, model) -> None:
-    """Weights-only export of a ``LitePose``, which both packages'
-    ``load_params`` read."""
+    """Weights-only export of a ``LitePose`` or ``SuperLitePose``, which
+    both packages' ``load_params`` read."""
     params, state = _model_trees(model)
     _write(path, {"params": params, "model_state": state})
+
+
+def load_model_params(path: str, model) -> None:
+    """Load a weights file of either package (``save_params``,
+    ``save_checkpoint``) into ``model``, a ``LitePose`` or ``SuperLitePose``
+    of its layout."""
+    _load_model_trees(model, *load_params(path))
+
+
+def load_pretrained_backbone(model, torch_sd) -> None:
+    """Load the stem (``first``) and the backbone (``stage``) of ``model`` from
+    a full reference LitePose state dict, keeping its own head (the JAX
+    ``load_pretrained_backbone``, the reference pretrain rule); a state dict
+    without head keys is refused.  On a supernet the blocks' ``lin5`` /
+    ``lin3`` keep their init: the JAX rule replaces its blocks whole with the
+    LitePose ones, which have none (ROADMAP Queue 3)."""
+    from ..models.torch_convert import state_dict_from_torch, strip_prefixes
+
+    sd = strip_prefixes(torch_sd)
+    if not any("deconv" in k or "final" in k for k in sd):
+        raise ValueError("checkpoint has no head keys; expected a full LitePose state_dict")
+    arch = model.dims.max_arch() if _is_supernet(model) else model.arch
+    full = state_dict_from_torch(sd, model.spec, arch)
+    own = model.state_dict()
+    new = {k: full[k] if k.split(".")[0] in ("first", "stage") and k in full else v
+           for k, v in own.items()}
+    model.load_state_dict(new, strict=True)
+    if not model.training and hasattr(model, "fold_bn_"):
+        model.fold_bn_()

@@ -14,9 +14,14 @@ Two behaviours of the JAX step need care in PyTorch:
   ``floor((i + 0.5) * in / out)``: ``F.interpolate``'s ``nearest-exact``,
   not its ``nearest`` (``floor(i * in / out)``);
 * ``torch.utils.checkpoint`` runs the forward again in the backward, and a
-  BN in training mode would update its running statistics a second time;
-  the remat step puts them back after the recomputation, so they equal
-  the plain step's, as JAX's functional state does.
+  BN in training mode would update its running statistics a second time
+  (the supernet's masked BNs too, whose statistics sit in ``BatchNorm2d``
+  modules); the remat step puts them back after the recomputation, so they
+  equal the plain step's, as JAX's functional state does;
+* JAX differentiates every leaf, so a parameter the forward did not use (a
+  supernet block's ``lin5`` / ``lin3`` at kernel 7) gets a zero gradient,
+  which weight decay and Adam's moments still act on; PyTorch's optimizers
+  skip a parameter whose gradient is None, so the step fills in zeros.
 """
 
 from __future__ import annotations
@@ -79,7 +84,9 @@ class _KeepBNStats:
 
 class StepFns:
     """Train steps, one per elastic input size, with a shared signature
-    ``step(ts, batch) -> (ts, metrics)``.
+    ``step(ts, batch, extra=None) -> (ts, metrics)``; ``extra`` (the
+    supernet's sampled mask descriptor) goes to the model as
+    ``model(x, extra)``.
 
     teacher_fn: a frozen teacher, ``(x) -> [stage outputs]`` on normalized
     images at ``teacher_size`` (an eval-mode ``LitePose``, whose BNs are
@@ -108,17 +115,18 @@ class StepFns:
     def _put(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 
-    def _forward(self, model: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
+    def _forward(self, model: nn.Module, x: torch.Tensor, extra=None) -> List[torch.Tensor]:
+        args = () if extra is None else (extra,)
         if not self.remat:
-            return model(x)
-        outs = checkpoint(lambda t: tuple(model(t)), x, use_reentrant=False,
+            return model(x, *args)
+        outs = checkpoint(lambda t: tuple(model(t, *args)), x, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(), _KeepBNStats(model)))
         return list(outs)
 
     def _build(self, img_size: Optional[int]) -> Callable:
         cfg = self.loss_cfg
 
-        def step(ts: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        def step(ts: TrainState, batch, extra=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
             images = normalize_images(self._put(batch["images"]))
             heatmaps = [self._put(h) for h in batch["heatmaps"]]
             masks = [self._put(m) for m in batch["masks"]]
@@ -145,7 +153,7 @@ class StepFns:
             if not model.training:
                 model.train()
             opt.zero_grad(set_to_none=True)
-            outs = self._forward(model, images)
+            outs = self._forward(model, images, extra)
             loss, metrics = multi_loss(outs, heatmaps, masks, joints, cfg)
             if t_heatmaps is not None:
                 t_loss = distill_loss(outs, t_heatmaps, masks, cfg)
@@ -153,6 +161,10 @@ class StepFns:
                 metrics["distill"] = t_loss
                 metrics["total"] = loss
             loss.backward()
+            for group in opt.param_groups:  # JAX's zero gradient for an unused leaf
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
             opt.step()
             ts.scheduler.step()
             return ts._replace(step=ts.step + 1), {k: v.detach() for k, v in metrics.items()}
@@ -183,11 +195,14 @@ class AverageMeter:
 
 def train_epoch(step_fns: StepFns, ts: TrainState, batches, epoch: int, logger=None,
                 print_freq: int = 20, elastic_sizes: Optional[Sequence[int]] = None,
+                arch_sampler: Optional[Callable[[np.random.Generator], object]] = None,
                 seed: int = 0, writer=None):
     """One epoch over an iterator of host batches.
 
-    elastic_sizes: when set, a random input size is drawn per step from
-    ``np.random.default_rng((seed, epoch))``, the JAX loop's draws."""
+    Per step, from ``np.random.default_rng((seed, epoch))`` in the JAX
+    loop's order: an input size when ``elastic_sizes`` is set, then
+    ``arch_sampler(rng)`` when set (the supernet's desc, passed to the
+    step), so one seed gives both packages the same (size, arch) sequence."""
     meters: Dict[str, AverageMeter] = {}
     rng = np.random.default_rng((seed, epoch))
     t0 = time.time()
@@ -197,7 +212,8 @@ def train_epoch(step_fns: StepFns, ts: TrainState, batches, epoch: int, logger=N
         img_size = None
         if elastic_sizes is not None:
             img_size = int(rng.choice(np.asarray(elastic_sizes)))
-        ts, metrics = step_fns.get(img_size)(ts, batch)
+        extra = arch_sampler(rng) if arch_sampler is not None else None
+        ts, metrics = step_fns.get(img_size)(ts, batch, extra)
         if i % print_freq == 0:
             metrics = {k: float(v) for k, v in metrics.items()}
             for k, v in metrics.items():

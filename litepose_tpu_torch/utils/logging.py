@@ -1,6 +1,5 @@
 """Experiment logging and output directory layout (the port's copy of
-``litepose_tpu/utils/logging.py``; its tensorboard writer waits for the
-train CLI).
+``litepose_tpu/utils/logging.py``).
 
 Mirrors the reference's logger/output conventions
 (``lib/utils/utils.py:24-74``): per-run directory
@@ -48,6 +47,16 @@ def create_run_dirs(cfg, cfg_path: str, phase: str = "train") -> Tuple[str, str]
     tb = Path(cfg.LOG_DIR or "log") / dataset / model / (cfg_name + "_" + time.strftime("%Y-%m-%d-%H-%M"))
     tb.mkdir(parents=True, exist_ok=True)
     return str(out), str(tb)
+
+
+def make_tb_writer(log_dir: str):
+    """A tensorboardX ``SummaryWriter`` on ``log_dir``, or None when
+    tensorboardX is not installed (logging then goes to the text log only)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
 
 
 def print_name_value(logger, name_value: dict, full_arch_name: str = ""):

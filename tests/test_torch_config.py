@@ -214,7 +214,10 @@ def test_registry_builds_litepose_and_names_what_waits():
     with torch.no_grad():
         outs = model(torch.zeros(1, 3, 64, 64))
     assert [tuple(o.shape) for o in outs] == [(1, 28, 16, 16), (1, 14, 32, 32)]
-    for name, item in (("pose_supermobilenet", "M9"), ("pose_higher_hrnet", "M10"),
+    supernet = get_model("pose_supermobilenet", cfg, arch, device="cpu")
+    assert not supernet.training and supernet.dims.deconv == (64, 48, 32)
+    assert supernet.max_desc.tolist() == [24, 32, 64, 96, 160, 64, 48, 32]
+    for name, item in (("pose_superresnet", "M10"), ("pose_higher_hrnet", "M10"),
                        ("pose_efficient_hrnet", "M10"), ("pose_resnet", "M10")):
         with pytest.raises(NotImplementedError, match=item):
             get_model(name, cfg, arch, device="cpu")

@@ -158,6 +158,30 @@ cfg = update_config(default_config(), "configs/crowd_pose/mobilenet/mobile.yaml"
 assert cfg.DATASET.NUM_JOINTS == 14 and cfg.TRAIN.LR == 4e-3
 assert decode_jpeg("litepose_tpu_torch/assets/eval_fixture/000004.jpg").shape == (427, 640, 3)
 assert polygons_to_mask([[1, 1, 8, 1, 8, 6]], 10, 10).sum() > 0
+# the NAS pipeline: the supernet at a sampled arch, its modules and CLIs
+import litepose_tpu_torch.models.fold_bn
+import litepose_tpu_torch.nas.calibrate
+import litepose_tpu_torch.tools.calibrate_test
+import litepose_tpu_torch.tools.fuse_bn
+import litepose_tpu_torch.tools.gen_arch
+import litepose_tpu_torch.tools.search
+import litepose_tpu_torch.tools.train
+import litepose_tpu_torch.tools.weight_transfer
+from litepose_tpu_torch.arch import ArchManager, gmacs
+from litepose_tpu_torch.data.resize import resize_linear
+from litepose_tpu_torch.models.super_litepose import (SuperDims, arch_to_mask_desc,
+                                                      extract_subnet, init_super_litepose)
+from litepose_tpu_torch.nas import EvolutionFinder
+manager = ArchManager(deconv_setting=(16, 16, 8),
+                      stage_setting=((8, 1, 2), (8, 2, 2), (16, 2, 2), (16, 1, 1)))
+supernet = init_super_litepose(ModelSpec(), SuperDims.from_manager(manager),
+                               torch.Generator().manual_seed(0)).eval()
+sub_arch = manager.random_sample(np.random.default_rng(0)).with_img_size(64)
+with torch.no_grad():
+    outs = supernet(torch.zeros(1, 3, 64, 64), arch_to_mask_desc(sub_arch))
+assert [tuple(o.shape) for o in outs] == [(1, 28, 16, 16), (1, 14, 32, 32)]
+assert extract_subnet(supernet, sub_arch).arch == sub_arch and gmacs(sub_arch) > 0
+assert resize_linear(images[0], (64, 48)).shape == (48, 64, 3)
 for name in ("jax", "cv2", "yaml", "PIL"):
     assert name not in sys.modules, name + " imported"
 jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
@@ -170,8 +194,11 @@ def test_port_runs_without_jax():
     """The port imports neither jax, cv2, yaml, PIL nor any module of the
     JAX package ``litepose_tpu``: a fresh interpreter builds an arch from the
     port's own zoo, runs the CPU engine's serving path and eval ``process``
-    on a non-square image, reads a config, decodes a JPEG, fills a polygon
-    and imports the eval CLI's modules, then checks ``sys.modules``."""
+    on a non-square image, reads a config, decodes a JPEG, fills a polygon,
+    imports the eval CLI's modules and the NAS pipeline's (the train,
+    search, weight-transfer, BN-fusion, arch and calibration CLIs), runs the
+    supernet at a sampled arch and extracts it, then checks
+    ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
