@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("nms_topk.cu", "group_greedy.cu", "group_hungarian.cu", "refine_argmax.cu")
+SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
+           "refine_argmax.cu")
 HEADERS = ("group_common.cuh",)
 LIB_NAME = "liblitepose_kernels.so"
 
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "lp_nms_topk_bands": (_INT, _INT, _INT, _INT),
     # r, widest plane, merge keys, largest M (outputs)
     "lp_nms_topk_limits": (_INT, _INT_P, _INT_P, _INT_P),
+    # det, is_bf16, val, pos, planes, H, W, M, r, stream (K1')
+    "lp_nms_topk_loop": (_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
+    # H, W, M, r -> a plane CTA's shared memory bytes, or -1 beyond a CTA's
+    "lp_nms_topk_loop_smem": (_INT, _INT, _INT, _INT),
     # tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
     # tag_thr, use_val, ignore_too_much, stream
     "lp_group_greedy": _GROUP_ARGS,

@@ -22,6 +22,7 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -81,6 +82,46 @@ def conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """A conv with no BN after it (the pointwise conv of ``SepConv2d``)."""
     return F.conv2d(x.to(dtype), m.weight.to(dtype), None, m.stride,
                     m.padding, m.dilation, m.groups)
+
+
+def conv_bias(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """A conv, then its bias added in the output dtype (the JAX
+    ``conv(...) + b.astype(out.dtype)`` of the families' final layers)."""
+    y = conv(x, m, dtype)
+    return y + m.bias.to(y.dtype)[:, None, None]
+
+
+class FoldsBN:
+    """``fold_bn_`` and ``train`` for an ``nn.Module`` whose ``conv_bn``
+    pairs ``_conv_bn_pairs()`` lists and whose convs run in
+    ``compute_dtype`` (LitePose, LitePose-ResNet)."""
+
+    def fold_bn_(self):
+        """Fold every conv's eval BN into it once, in ``compute_dtype``
+        (non-persistent buffers, so they move with ``.to`` and stay out of
+        the state dict).  Folding at every call instead adds 1.5-3% to the
+        b64 forward and doubles the b1 latency on an H100 (PERF.md).  Call
+        it again after writing weights in eval mode; ``train`` handles the
+        switches between the modes."""
+        for conv, bn in self._conv_bn_pairs():
+            w, bias = fold_bn(conv, bn, self.compute_dtype)
+            conv.register_buffer("folded_w", w, persistent=False)
+            conv.register_buffer("folded_b", bias, persistent=False)
+        return self
+
+    def train(self, mode: bool = True):
+        """Switching to training drops the folded weights, which every
+        optimizer step would leave stale; switching back to eval folds the
+        trained weights again, so eval never serves the old ones."""
+        was_training = self.training
+        super().train(mode)
+        if mode:
+            for conv, _ in self._conv_bn_pairs():
+                for name in ("folded_w", "folded_b"):
+                    conv._buffers.pop(name, None)
+        elif was_training:
+            self.fold_bn_()
+        return self
 
 
 class ConvBNReLU6(nn.Sequential):
@@ -152,3 +193,33 @@ def deconv(x: torch.Tensor, m: nn.ConvTranspose2d,
            dtype: torch.dtype) -> torch.Tensor:
     return F.conv_transpose2d(x.to(dtype), m.weight.to(dtype), None,
                               m.stride, m.padding, m.output_padding)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Each pixel of (B, C, H, W) repeated ``factor`` times along H and W
+    (``jnp.repeat`` on both axes)."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, factor, w, factor).reshape(
+        b, c, h * factor, w * factor)
+
+
+def fan_in_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX init in place: every conv kernel drawn from ``generator``
+    uniformly in +-sqrt(3 / fan_in) (``layers._fan_in_uniform``, sqrt(3)
+    times PyTorch's default), fan_in ``k*k*cin/groups`` for a conv and
+    ``k*k*cout`` for a transposed conv; conv biases 0.  BNs keep scale 1,
+    bias 0, mean 0, var 1.  Draws are made where the model is (the CPU), so
+    a seed gives the same weights whatever device the model goes to."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
+            elif isinstance(m, nn.Conv2d):
+                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+            else:
+                continue
+            bound = math.sqrt(3.0 / fan_in)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model

@@ -19,7 +19,6 @@ here).
 
 from __future__ import annotations
 
-import math
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -65,7 +64,7 @@ class ModelSpec(NamedTuple):
         return out
 
 
-class LitePose(nn.Module):
+class LitePose(L.FoldsBN, nn.Module):
     """Forward: ``x`` (B, 3, H, W) normalized images -> list of NCHW stage
     outputs at (H/4, W/4) and (H/2, W/2), in ``out_dtype``.
 
@@ -140,33 +139,6 @@ class LitePose(nn.Module):
                 pairs.append((m.conv[0], m.conv[1]))
         return pairs
 
-    def fold_bn_(self) -> "LitePose":
-        """Fold every conv's eval BN into it once, in ``compute_dtype``
-        (non-persistent buffers, so they move with ``.to`` and stay out of
-        the state dict).  Folding at every call instead adds 1.5-3% to the
-        b64 forward and doubles the b1 latency on an H100 (PERF.md).  Call
-        it again after writing weights in eval mode; ``train`` handles the
-        switches between the modes."""
-        for conv, bn in self._conv_bn_pairs():
-            w, bias = L.fold_bn(conv, bn, self.compute_dtype)
-            conv.register_buffer("folded_w", w, persistent=False)
-            conv.register_buffer("folded_b", bias, persistent=False)
-        return self
-
-    def train(self, mode: bool = True) -> "LitePose":
-        """Switching to training drops the folded weights, which every
-        optimizer step would leave stale; switching back to eval folds the
-        trained weights again, so eval never serves the old ones."""
-        was_training = self.training
-        super().train(mode)
-        if mode:
-            for conv, _ in self._conv_bn_pairs():
-                for name in ("folded_w", "folded_b"):
-                    conv._buffers.pop(name, None)
-        elif was_training:
-            self.fold_bn_()
-        return self
-
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         dt = self.compute_dtype
         y = self.first[0](x, dt)
@@ -202,21 +174,7 @@ def init_litepose(spec: ModelSpec, arch: ArchConfig, generator: torch.Generator,
     """A freshly initialized ``LitePose`` in training mode, on the CPU
     (counterpart of ``init_litepose``, ``litepose_tpu/models/litepose.py``).
 
-    Every kernel is drawn from ``generator`` uniformly in +-sqrt(3 / fan_in),
-    the JAX bound (``litepose_tpu/models/layers.py:_fan_in_uniform``), which
-    is sqrt(3) times PyTorch's default conv init; fan_in is
-    ``k*k*cin/groups`` for a conv and ``k*k*cout`` for a transposed conv.
-    BNs start at scale 1, bias 0, mean 0, var 1.  Draws are made on the CPU,
-    so one seed gives the same weights whatever device the model goes to."""
+    Kernels are drawn from ``generator`` by ``layers.fan_in_init_``, the
+    JAX bound (``litepose_tpu/models/layers.py:_fan_in_uniform``)."""
     model = LitePose(spec, arch, with_skips=with_skips, **model_kw)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, nn.ConvTranspose2d):
-                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
-            elif isinstance(m, nn.Conv2d):
-                fan_in = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
-            else:
-                continue
-            bound = math.sqrt(3.0 / fan_in)
-            m.weight.uniform_(-bound, bound, generator=generator)
-    return model.train()
+    return L.fan_in_init_(model, generator).train()

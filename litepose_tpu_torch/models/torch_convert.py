@@ -1,13 +1,19 @@
-"""Reference PyTorch LitePose checkpoints into the port's ``LitePose`` (the
-counterpart of ``strip_prefixes``, ``litepose_from_torch`` and
-``load_torch_checkpoint`` in ``litepose_tpu/models/torch_convert.py``).
+"""Reference PyTorch checkpoints into the port's models (the counterpart of
+``strip_prefixes``, ``litepose_from_torch``, ``hrnet_from_torch``,
+``efficient_hrnet_from_torch`` and ``load_torch_checkpoint`` in
+``litepose_tpu/models/torch_convert.py``).
 
 The port's parameter names are the reference layout
 (``lib/models/pose_mobilenet.py``), so a reference state
 dict loads as it is once the ``module.`` prefix of DDP and the leading
 ``1.`` of the reference fp16 wrapper are stripped; the keys the model does
 not name (a classifier head, say) are left out, as the JAX converter leaves
-them.
+them.  HigherHRNet and EfficientHRNet name their parameters as the
+reference ``pose_higher_hrnet`` / ``pose_efficient_hrnet`` do, so their
+reference state dicts load with ``strict=True`` once the prefixes are
+stripped.  LitePose-ResNet has no reference loader: the JAX package sends a
+``pose_resnet`` ``.pth`` to ``litepose_from_torch``, which cannot read it
+(ROADMAP Queue 3), and the port raises instead (``RESNET_REFERENCE``).
 """
 
 from __future__ import annotations
@@ -78,3 +84,38 @@ def load_torch_checkpoint(path: str):
             if key in ckpt and isinstance(ckpt[key], dict):
                 return ckpt[key]
     return ckpt
+
+
+RESNET_REFERENCE = ("a reference .pth / .tar for pose_resnet has no loader: the JAX package "
+                    "sends it to litepose_from_torch, which needs LitePose keys "
+                    "(ROADMAP Queue 3, M10); load a .msgpack instead")
+
+
+def family_state_dict_from_torch(sd: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """A reference state dict of a baseline family, prefixes stripped, in
+    the dtypes of ``model``'s state dict (fp32 weights, int64 counts); the
+    keys go to ``load_state_dict(strict=True)`` as they are."""
+    own = model.state_dict()
+    return {k: torch.as_tensor(v).to(own[k].dtype) if k in own else torch.as_tensor(v)
+            for k, v in strip_prefixes(sd).items()}
+
+
+def _loaded(model, sd: Mapping[str, Any]):
+    model.load_state_dict(family_state_dict_from_torch(sd, model), strict=True)
+    return model.eval()
+
+
+def hrnet_from_torch(sd: Mapping[str, Any], spec, **model_kw):
+    """A ``HigherHRNet`` in eval mode holding a reference
+    ``PoseHigherResolutionNet`` state dict."""
+    from .higher_hrnet import HigherHRNet
+
+    return _loaded(HigherHRNet(spec, **model_kw), sd)
+
+
+def efficient_hrnet_from_torch(sd: Mapping[str, Any], spec, **model_kw):
+    """An ``EfficientHRNet`` in eval mode holding a reference
+    ``pose_efficient_hrnet`` state dict."""
+    from .efficient_hrnet import EfficientHRNet
+
+    return _loaded(EfficientHRNet(spec, **model_kw), sd)

@@ -1,9 +1,12 @@
-"""Fused NMS + exact top-M peak extraction (K1; counterpart of
+"""Fused NMS + exact top-M peak extraction (K1 and K1'; counterpart of
 ``litepose_tpu/ops/pallas_topk.py``).
 
-``nms_topk`` launches ``csrc/nms_topk.cu`` for a CUDA tensor and runs the
-plain twin ``nms_topk_ref`` for a CPU tensor; ``top_k_peaks_batch`` adds the
-tag gather and the x/y decode around it.
+``nms_topk`` launches ``csrc/nms_topk.cu`` (K1, row bands and a merge) for a
+CUDA tensor, or with ``_gather="sum"`` / ``"dot"`` ``csrc/nms_topk_loop.cu``
+(K1', the per-plane loop over a row-max vector that the JAX package keeps as
+K1's baseline; no config selects it), and runs the plain twin
+``nms_topk_ref`` for a CPU tensor; ``top_k_peaks_batch`` adds the tag
+gather and the x/y decode around K1.
 """
 
 from __future__ import annotations
@@ -25,14 +28,21 @@ def nms_topk_ref(det: torch.Tensor, max_people: int,
     return top_m(sup, max_people)
 
 
-def nms_topk(det: torch.Tensor, max_people: int,
-             nms_kernel: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
+def nms_topk(det: torch.Tensor, max_people: int, nms_kernel: int = 5,
+             _gather: str = "vec") -> Tuple[torch.Tensor, torch.Tensor]:
     """NMS + exact top-M of every (image, joint) plane.
 
     det (B, K, H, W) fp32 or bf16 -> (val (B, K, M) fp32, pos (B, K, M)
     int32).  Equal to ``heatmap_nms`` + ``lax.top_k`` in the JAX package,
-    tie order included.  A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernel (``nms_topk.launches`` counts those launches)."""
+    tie order included.  A CPU tensor takes the plain twin whatever
+    ``_gather``; a CUDA tensor launches a kernel: ``"vec"`` (the default,
+    JAX's private argument of ``nms_topk_pallas``) K1, counted by
+    ``nms_topk.launches``; ``"sum"`` and ``"dot"`` K1', counted by
+    ``nms_topk.loop_launches``.  On the TPU "dot" picked a row by an MXU
+    product that is not exact; the card has no such pass, so both run the
+    same exact kernel."""
+    if _gather not in ("vec", "sum", "dot"):
+        raise ValueError(f"_gather must be 'vec', 'sum' or 'dot', got {_gather!r}")
     if det.dim() != 4:
         raise ValueError(f"det must be (B, K, H, W), got {tuple(det.shape)}")
     if det.dtype not in (torch.float32, torch.bfloat16):
@@ -48,6 +58,8 @@ def nms_topk(det: torch.Tensor, max_people: int,
         raise ValueError(f"nms_topk runs on cpu or cuda, not {det.device}")
     if not det.is_contiguous():
         raise ValueError("det must be contiguous")
+    if _gather != "vec":
+        return _nms_topk_loop(det, max_people, nms_kernel // 2)
     if B * K > 65535:
         raise ValueError(f"the K1 kernel takes at most 65535 planes, got {B * K}")
 
@@ -80,7 +92,29 @@ def nms_topk(det: torch.Tensor, max_people: int,
     return val, pos
 
 
+def _nms_topk_loop(det: torch.Tensor, max_people: int, r: int):
+    """K1' on a contiguous CUDA ``det`` (checked by ``nms_topk``)."""
+    from ..kernels import build
+
+    lib = build.load()
+    B, K, H, W = det.shape
+    if lib.lp_nms_topk_loop_smem(H, W, max_people, r) < 0:
+        raise ValueError(f"{H}x{W} planes exceed the shared memory of the K1' kernel's "
+                         f"CTA (H row keys and 8 rows of W + {2 * r} floats)")
+    val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
+    pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
+    if B * K:
+        stream = torch.cuda.current_stream(det.device).cuda_stream
+        err = lib.lp_nms_topk_loop(det.data_ptr(), int(det.dtype == torch.bfloat16),
+                                   val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r,
+                                   stream)
+        build.check(err, "nms_topk (K1')")
+        nms_topk.loop_launches += 1
+    return val, pos
+
+
 nms_topk.launches = 0
+nms_topk.loop_launches = 0
 
 
 def top_k_peaks_batch(det: torch.Tensor, tag: torch.Tensor, max_people: int,

@@ -18,7 +18,9 @@ directory ``OUTPUT_DIR/<dataset>/<model>/<cfg name>`` gets the log,
 ``AUTO_RESUME``) and ``final_state.msgpack``; both packages read them.
 
 ``--device cuda`` (the default) raises without a card; ``--device cpu``
-trains on the host.  One device only: ``--multi-host`` raises (DDP waits
+trains on the host.  The baseline families (``pose_higher_hrnet``,
+``pose_efficient_hrnet``, ``pose_resnet``) and ``pose_superresnet`` raise
+``NotImplementedError``: their training is not held to JAX's yet (ROADMAP M10).  One device only: ``--multi-host`` raises (DDP waits
 for ROADMAP M8).
 """
 
@@ -102,7 +104,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     from ..config import check_config, default_config, update_config
     from ..core.losses import LossConfig
     from ..data.dataset import PipelineConfig, PoseDataset, TrainPipeline, make_batch_iterator
-    from ..models import get_model
+    from ..models import FAMILIES, get_model
     from ..models.super_litepose import arch_to_mask_desc
     from ..train import optim
     from ..train.checkpoint import (auto_resume, init_train_state, load_pretrained_backbone,
@@ -114,6 +116,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     cfg = default_config()
     update_config(cfg, args.cfg, args.opts)
     check_config(cfg)
+    if cfg.MODEL.NAME in FAMILIES or cfg.MODEL.NAME == "pose_superresnet":
+        raise NotImplementedError(f"training {cfg.MODEL.NAME} is not ported yet: ROADMAP M10 "
+                                  f"(the baseline families train once their steps are held "
+                                  f"to JAX's)")
     out_dir, tb_dir = create_run_dirs(cfg, args.cfg)
     logger = setup_logger(out_dir)
     writer = make_tb_writer(tb_dir)

@@ -1,4 +1,5 @@
-"""Evaluation CLI: OKS AP of a LitePose model on a COCO / CrowdPose split on
+"""Evaluation CLI: OKS AP of a pose model (LitePose or a baseline family:
+HigherHRNet, EfficientHRNet, LitePose-ResNet) on a COCO / CrowdPose split on
 disk (the counterpart of ``tools/valid.py``; the reference ``valid.py``
 flow, the batched eval protocol on the card).
 
@@ -9,8 +10,8 @@ Arguments and outputs are ``tools/valid.py``'s: the run directory
 ``OUTPUT_DIR/<dataset>/<model>/<cfg name>`` with the log and
 ``keypoint_results.json``, and the markdown AP table.  Weights come from
 ``TEST.MODEL_FILE``: a ``.pth`` / ``.tar`` reference state dict
-(``models.torch_convert``) or a ``.msgpack`` checkpoint of either package
-(``train.checkpoint.load_params``).  ``TPU.COMPUTE_DTYPE`` is the model's
+(``models.torch_convert``; none exists for ``pose_resnet``, which raises)
+or a ``.msgpack`` checkpoint of either package (``train.checkpoint.load_params``).  ``TPU.COMPUTE_DTYPE`` is the model's
 conv compute type (``bfloat16``, the JAX CLI's policy, or ``float32``).
 
 ``--device cuda`` (the default) runs the kernels on the card and raises
@@ -70,27 +71,41 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def build_model(cfg, arch, device):
-    """The model ``cfg`` names, with ``TEST.MODEL_FILE``'s weights when set
-    (else the seeded init), BNs folded, on ``device``."""
-    from ..models import get_model
-    from ..models.convert import state_dict_from_jax
+    """The model ``cfg`` names (``"super"`` names run as ``pose_mobilenet``,
+    as in the JAX CLI), with ``TEST.MODEL_FILE``'s weights when set (else
+    the seeded init), in eval mode with its BNs folded where it folds them,
+    on ``device``.  A ``.pth`` / ``.tar`` goes to the family's reference
+    loader, a ``.msgpack`` to ``train.checkpoint.load_params``."""
+    from ..models import FAMILIES, get_model
+    from ..models.convert import family_state_dict_from_jax, state_dict_from_jax
     from ..models.litepose import ModelSpec
 
     name = "pose_mobilenet" if "super" in cfg.MODEL.NAME else cfg.MODEL.NAME
     model = get_model(name, cfg, arch, device="cpu", compute_dtype=compute_dtype(cfg))
     path = cfg.TEST.MODEL_FILE
     if path:
-        spec, skips = ModelSpec.from_config(cfg), model.with_skips
         if path.endswith((".pth", ".tar")):
-            from ..models.torch_convert import load_torch_checkpoint, state_dict_from_torch
+            from ..models import torch_convert as tc
 
-            sd = state_dict_from_torch(load_torch_checkpoint(path), spec, arch, skips)
+            if name == "pose_resnet":
+                raise NotImplementedError(tc.RESNET_REFERENCE)
+            ref = tc.load_torch_checkpoint(path)
+            if name in FAMILIES:
+                sd = tc.family_state_dict_from_torch(ref, model)
+            else:
+                sd = tc.state_dict_from_torch(ref, ModelSpec.from_config(cfg), arch,
+                                              model.with_skips)
         else:
             from ..train.checkpoint import load_params
 
-            sd = state_dict_from_jax(*load_params(path), spec, arch, skips)
+            if name in FAMILIES:
+                sd = family_state_dict_from_jax(model, *load_params(path))
+            else:
+                sd = state_dict_from_jax(*load_params(path), ModelSpec.from_config(cfg), arch,
+                                         model.with_skips)
         model.load_state_dict(sd, strict=True)
-        model.fold_bn_()
+        if hasattr(model, "fold_bn_"):
+            model.fold_bn_()
     return model.to(device)
 
 
@@ -124,6 +139,12 @@ def prepare(args: argparse.Namespace):
     cfg = default_config()
     update_config(cfg, args.cfg, args.opts)
     check_config(cfg)
+    if cfg.MODEL.NUM_JOINTS != cfg.DATASET.NUM_JOINTS:
+        # the JAX CLI fails too, in the forward's stage aggregation (a
+        # broadcast of the model's planes against the dataset's joints)
+        raise ValueError(f"MODEL.NUM_JOINTS {cfg.MODEL.NUM_JOINTS} != DATASET.NUM_JOINTS "
+                         f"{cfg.DATASET.NUM_JOINTS}: the decode reads the model's planes "
+                         f"as the dataset's joints")
     out_dir, _ = create_run_dirs(cfg, args.cfg, phase="valid")
     logger = setup_logger(out_dir, phase="valid")
 

@@ -41,8 +41,9 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.convert import (entries, named_from_tree, super_entries,
-                              super_state_dict_from_jax, state_dict_from_jax, tree_from_named)
+from ..models.convert import (entries, family_entries, family_state_dict_from_jax,
+                              named_from_tree, super_entries, super_state_dict_from_jax,
+                              state_dict_from_jax, tree_from_named)
 from .optim import set_schedule_step
 
 EXT_NDARRAY = 1
@@ -296,6 +297,8 @@ def _is_supernet(model) -> bool:
 def _tables(model):
     if _is_supernet(model):
         return super_entries(model.spec, model.dims)
+    if not hasattr(model, "arch"):  # a baseline family (HigherHRNet, ...)
+        return family_entries(model)
     return entries(model.spec, model.arch, model.with_skips)
 
 
@@ -368,6 +371,8 @@ def _load_model_trees(model, params, state) -> None:
     if _is_supernet(model):
         sd = super_state_dict_from_jax(params, state, model.spec, model.dims,
                                        keep=model.state_dict())
+    elif not hasattr(model, "arch"):
+        sd = family_state_dict_from_jax(model, params, state)
     else:
         sd = state_dict_from_jax(params, state, model.spec, model.arch, model.with_skips)
     model.load_state_dict(sd, strict=True)
@@ -420,8 +425,8 @@ def auto_resume(directory: str, template: TrainState) -> TrainState:
 
 
 def save_params(path: str, model) -> None:
-    """Weights-only export of a ``LitePose`` or ``SuperLitePose``, which
-    both packages' ``load_params`` read."""
+    """Weights-only export of a ``LitePose``, ``SuperLitePose`` or baseline
+    family model, which both packages' ``load_params`` read."""
     params, state = _model_trees(model)
     _write(path, {"params": params, "model_state": state})
 

@@ -200,10 +200,18 @@ def test_arch_manager_random_sample_equals_jax():
 
 
 def test_registry_builds_litepose_and_names_what_waits():
+    """LitePose, its supernet and the three baseline families of the
+    shipped configs build (the families at the JAX registry's stage output
+    shapes, from ``jax.eval_shape``); ``pose_superresnet`` still names its
+    ROADMAP item."""
+    import jax
+    import litepose_tpu.models as jmodels
     import torch
+    from litepose_tpu.config import default_config as j_default
+    from litepose_tpu.config import update_config as j_update
 
     from litepose_tpu_torch.arch import get_arch
-    from litepose_tpu_torch.models import get_model
+    from litepose_tpu_torch.models import FAMILIES, get_model
 
     cfg = update_config(default_config(), os.path.join(
         REPO, "configs", "crowd_pose", "mobilenet", "mobile.yaml"))
@@ -217,8 +225,22 @@ def test_registry_builds_litepose_and_names_what_waits():
     supernet = get_model("pose_supermobilenet", cfg, arch, device="cpu")
     assert not supernet.training and supernet.dims.deconv == (64, 48, 32)
     assert supernet.max_desc.tolist() == [24, 32, 64, 96, 160, 64, 48, 32]
-    for name, item in (("pose_superresnet", "M10"), ("pose_higher_hrnet", "M10"),
-                       ("pose_efficient_hrnet", "M10"), ("pose_resnet", "M10")):
+    for name, path in zip(FAMILIES, ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
+                                     "crowd_pose/efficient_hrnet/H-3.yaml",
+                                     "crowd_pose/resnet/resnet.yaml")):
+        path = os.path.join(REPO, "configs", path)
+        family = get_model(name, update_config(default_config(), path), device="cpu")
+        assert not family.training and family.compute_dtype == torch.bfloat16
+        with torch.no_grad():
+            outs = family(torch.zeros(1, 3, 64, 64))
+        init_fn, apply_fn = jmodels.get_model(name, j_update(j_default(), path), None)
+        params, state = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
+        want = jax.eval_shape(lambda p, s, x: apply_fn(p, s, x)[0], params, state,
+                              jax.ShapeDtypeStruct((1, 64, 64, 3), "float32"))
+        assert [tuple(o.shape) for o in outs] == [(w.shape[0], w.shape[3], w.shape[1],
+                                                    w.shape[2]) for w in want], name
+        assert all(o.dtype == torch.float32 for o in outs)
+    for name, item in (("pose_superresnet", "M9"),):
         with pytest.raises(NotImplementedError, match=item):
             get_model(name, cfg, arch, device="cpu")
     with pytest.raises(KeyError):

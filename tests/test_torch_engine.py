@@ -182,6 +182,21 @@ with torch.no_grad():
 assert [tuple(o.shape) for o in outs] == [(1, 28, 16, 16), (1, 14, 32, 32)]
 assert extract_subnet(supernet, sub_arch).arch == sub_arch and gmacs(sub_arch) > 0
 assert resize_linear(images[0], (64, 48)).shape == (48, 64, 3)
+# the baseline families from their configs, their bridges and reference
+# loaders, and K1' on the host (its twin)
+import litepose_tpu_torch.models.convert as convert
+import litepose_tpu_torch.models.torch_convert as torch_convert
+from litepose_tpu_torch.models import FAMILIES, get_model
+from litepose_tpu_torch.ops.topk import nms_topk
+for fam, path in zip(FAMILIES, ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
+                                "crowd_pose/efficient_hrnet/H-3.yaml",
+                                "crowd_pose/resnet/resnet.yaml")):
+    net = get_model(fam, update_config(default_config(), "configs/" + path), device="cpu")
+    with torch.no_grad():
+        outs = net(torch.zeros(1, 3, 64, 64))
+    assert [tuple(o.shape) for o in outs] == [(1, 28, 16, 16), (1, 14, 32, 32)], fam
+    assert convert.family_entries(net) and convert.to_jax(net)[0]
+assert nms_topk(torch.rand(1, 2, 16, 16), 4, _gather="sum")[1].shape == (1, 2, 4)
 for name in ("jax", "cv2", "yaml", "PIL"):
     assert name not in sys.modules, name + " imported"
 jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
@@ -197,7 +212,8 @@ def test_port_runs_without_jax():
     on a non-square image, reads a config, decodes a JPEG, fills a polygon,
     imports the eval CLI's modules and the NAS pipeline's (the train,
     search, weight-transfer, BN-fusion, arch and calibration CLIs), runs the
-    supernet at a sampled arch and extracts it, then checks
+    supernet at a sampled arch and extracts it, builds and runs the three
+    baseline families from their configs and K1' (its twin), then checks
     ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))

@@ -328,3 +328,158 @@ def test_kernel_limits_on_card(cuda):
         nms_topk(torch.zeros(1, 1, 4, 7200, device=cuda), 30, 7)
     with pytest.raises(ValueError, match="merge of 8192 band keys"):
         nms_topk(torch.zeros(1, 1, 4096, 4096, device=cuda), 30, 5)
+
+
+# -- K1': the per-plane loop over a row-max vector -------------------------------
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("gather", ["sum", "dot"])
+def test_loop_variant_matches_pallas_sum(jref, case, gather):
+    """``_gather="sum"`` and ``"dot"`` (K1' on the card) run the twin on the
+    CPU: equal to the Pallas loop kernel ``_gather="sum"`` in interpret
+    mode (the exact variant; "dot" is inexact only on the TPU's MXU)."""
+    jnp, pallas_topk = jref
+    det = _planes(case)
+    val, pos = nms_topk(torch.from_numpy(det), M, 5, _gather=gather)
+    want_v, want_p = pallas_topk.nms_topk_pallas(jnp.asarray(det), M, 5, _gather="sum",
+                                                 _interp=True)
+    np.testing.assert_array_equal(val.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want_p))
+
+
+def test_wrapper_rejects_unknown_gather():
+    with pytest.raises(ValueError, match="_gather"):
+        nms_topk(torch.zeros(1, 1, 8, 8), M, _gather="mxu")
+
+
+def _value_key(v: torch.Tensor) -> torch.Tensor:
+    """The K1' kernel's value bits (orderable, -0.0 as +0.0) as the high word
+    of an int64 whose signed order is the key's unsigned order."""
+    return pack_keys(v, torch.zeros_like(v, dtype=torch.int64)) & ~0xFFFFFFFF
+
+
+def _index_key(value: torch.Tensor, idx) -> torch.Tensor:
+    return value | (0xFFFFFFFF - torch.as_tensor(idx, dtype=torch.int64))
+
+
+def row_suppressed(x: torch.Tensor, y: int, r: int) -> torch.Tensor:
+    """Row y of the suppressed plane, recomputed from the input as the K1'
+    kernel does: the vertical max over rows y - r .. y + r, r columns of
+    -inf on each side, the horizontal max, the equality test."""
+    H, W = x.shape
+    vm = x[max(y - r, 0):min(y + r, H - 1) + 1].amax(0)
+    padded = torch.nn.functional.pad(vm, (r, r), value=float("-inf"))
+    m = torch.stack([padded[d:d + W] for d in range(2 * r + 1)]).amax(0)
+    return torch.where(m == x[y], x[y], torch.zeros_like(x[y]))
+
+
+def loop_nms_topk(det: torch.Tensor, m: int, kernel: int):
+    """K1' as the kernel computes it: per plane the H row keys (the row's
+    largest cell key's value, then the lower row first), then m rounds: the
+    largest row key's row recomputed, the cells earlier rounds took masked
+    by position, the two largest cell keys: slot i and the row's new key."""
+    r = kernel // 2
+    x = det.float()
+    B, K, H, W = x.shape
+    val = torch.empty((B, K, m), dtype=torch.float32)
+    pos = torch.empty((B, K, m), dtype=torch.int32)
+    cols = torch.arange(W)
+    for b in range(B):
+        for k in range(K):
+            plane = x[b, k]
+            rowkey = torch.stack([_index_key(_value_key(row_suppressed(plane, y, r)).max(), y)
+                                  for y in range(H)])
+            taken = []
+            for i in range(m):
+                y = 0xFFFFFFFF - int(rowkey.max() & 0xFFFFFFFF)
+                s = row_suppressed(plane, y, r)
+                keys = _index_key(_value_key(s), cols)
+                for t in taken:
+                    if t // W == y:
+                        keys[t % W] = SENTINEL
+                top = keys.sort(descending=True).values
+                c = 0xFFFFFFFF - int(top[0] & 0xFFFFFFFF)
+                val[b, k, i], pos[b, k, i] = s[c], y * W + c
+                taken.append(y * W + c)
+                second = top[1] if W > 1 else torch.tensor(SENTINEL)
+                rowkey[y] = SENTINEL if second == SENTINEL else _index_key(
+                    second & ~0xFFFFFFFF, y)
+    return val, pos
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("kernel", [3, 5, 7])
+def test_loop_emulation_matches_twin(case, kernel):
+    """The row-recompute design, emulated, against the twin bit for bit
+    (-0.0 included), fp32 and bf16 planes, NMS windows 3 to 7."""
+    for dtype in (torch.float32, torch.bfloat16):
+        det = torch.from_numpy(_planes(case)).to(dtype)
+        got_v, got_p = loop_nms_topk(det, M, kernel)
+        want_v, want_p = nms_topk_ref(det, M, kernel)
+        assert torch.equal(got_p, want_p)
+        assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+
+
+def test_loop_emulation_narrow_planes():
+    """Planes narrower than the NMS window and a single column: rows of one
+    cell run out, and the next round takes the next row."""
+    rng = np.random.default_rng(9)
+    for shape in ((1, 2, 9, 3), (1, 1, 12, 1), (1, 1, 1, 12)):
+        det = torch.from_numpy(rng.integers(0, 3, shape).astype(np.float32))
+        for kernel in (3, 7):
+            got_v, got_p = loop_nms_topk(det, min(M, shape[2] * shape[3]), kernel)
+            want_v, want_p = nms_topk_ref(det, min(M, shape[2] * shape[3]), kernel)
+            assert torch.equal(got_p, want_p)
+            assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["sum", "dot"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_loop_kernel_matches_twin_and_k1_on_card(cuda, case, dtype, gather):
+    """K1' bit-equal to the twin and to K1, counted by its own counter."""
+    det = torch.from_numpy(_planes(case)).to(dtype)
+    for kernel in (3, 5, 7):
+        want_v, want_p = nms_topk_ref(det, M, kernel)
+        before, k1_before = nms_topk.loop_launches, nms_topk.launches
+        val, pos = nms_topk(det.to(cuda), M, kernel, _gather=gather)
+        torch.cuda.synchronize()
+        assert (nms_topk.loop_launches, nms_topk.launches) == (before + 1, k1_before)
+        assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
+        assert torch.equal(pos.cpu(), want_p)
+        k1_v, k1_p = nms_topk(det.to(cuda), M, kernel)
+        assert torch.equal(val.view(torch.int32), k1_v.view(torch.int32))
+        assert torch.equal(pos, k1_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 14, 448, 448), (1, 3, 512, 704), (1, 2, 45, 224),
+                                   (1, 1, 300, 1)])
+def test_loop_kernel_on_card_shapes(cuda, shape):
+    """Eval planes, a plane of one column (every row runs out after its one
+    cell), the K1 traps: bit-equal to the twin, fp32 and bf16, windows 3-7."""
+    rng = np.random.default_rng(3)
+    det = (0.3 * rng.random(shape)).astype(np.float32)
+    if shape[3] > 11:
+        det[0, 0, ::5, 11] = 0.9
+    det[-1, -1, : shape[2] // 2] = -0.0
+    det = torch.from_numpy(det)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in (3, 5, 7):
+            want_v, want_p = nms_topk_ref(det.to(dtype), 30, kernel)
+            val, pos = nms_topk(det.to(dtype).to(cuda), 30, kernel, _gather="sum")
+            torch.cuda.synchronize()
+            assert torch.equal(pos.cpu(), want_p)
+            assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_loop_kernel_limits_on_card(cuda):
+    from litepose_tpu_torch.kernels import build
+
+    lib = build.load()
+    assert lib.lp_nms_topk_loop_smem(448, 448, 30, 2) == 448 * 8 + 8 * 452 * 4 + 30 * 4
+    with pytest.raises(ValueError, match="shared memory of the K1' kernel"):
+        nms_topk(torch.zeros(1, 1, 4, 8000, device=cuda), 30, 5, _gather="sum")

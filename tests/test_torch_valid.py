@@ -9,7 +9,9 @@ forward in fp32 (the JAX CLI through ``Policy.exact()``, the port's through
 
 Also: a port ``TrainPipeline`` over the port's ``PoseDataset`` against the
 JAX pair on the same files, the reference ``.pth.tar`` loader against the
-JAX forward, and the CLI's refusals."""
+JAX forward, the CLI's refusals, and a narrow HigherHRNet (the w32 CrowdPose
+config cut to one module a stage and 8-32 channels, at 128 px) through both
+CLIs from one reference ``.pth.tar``."""
 
 import glob
 import importlib.util
@@ -254,6 +256,96 @@ def test_cli_refusals(arch_json, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(_args(arch_json, str(tmp_path)))
-    bad = _args(arch_json, str(tmp_path), "--device", "cpu", "MODEL.NAME", "pose_higher_hrnet")
-    with pytest.raises(NotImplementedError, match="M10"):
+    # a reference .pth of pose_resnet: the JAX CLI's loader cannot read it
+    bad = _args(arch_json, str(tmp_path), "--device", "cpu", "MODEL.NAME", "pose_resnet")
+    bad[bad.index(CKPT_XS)] = str(tmp_path / "resnet.pth.tar")
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         main(bad)
+
+
+HRNET_CFG = os.path.join(REPO, "configs", "crowd_pose", "higher_hrnet", "w32_512_adam_lr1e-3.yaml")
+HRNET_OPTS = ["DATASET.INPUT_SIZE", "128", "DATASET.OUTPUT_SIZE", "[32, 64]",
+              "MODEL.EXTRA.STEM_INPLANES", "8",
+              "MODEL.EXTRA.STAGE2.NUM_BLOCKS", "[1, 1]",
+              "MODEL.EXTRA.STAGE2.NUM_CHANNELS", "[8, 16]",
+              "MODEL.EXTRA.STAGE3.NUM_MODULES", "1",
+              "MODEL.EXTRA.STAGE3.NUM_BLOCKS", "[1, 1, 1]",
+              "MODEL.EXTRA.STAGE3.NUM_CHANNELS", "[8, 16, 24]",
+              "MODEL.EXTRA.STAGE4.NUM_MODULES", "1",
+              "MODEL.EXTRA.STAGE4.NUM_BLOCKS", "[1, 1, 1, 1]",
+              "MODEL.EXTRA.STAGE4.NUM_CHANNELS", "[8, 16, 24, 32]",
+              "MODEL.EXTRA.DECONV.NUM_CHANNELS", "[8]",
+              "MODEL.EXTRA.DECONV.NUM_BASIC_BLOCKS", "1"]
+HRNET_IMAGES = 3
+
+
+def test_hrnet_port_cli_equals_jax_cli(tmp_path):
+    """One seeded narrow HigherHRNet (BNs moved, heatmaps ``peaky`` on the
+    three images resized to 128x128: 10% of each plane above the threshold)
+    saved as a reference ``.pth.tar`` with DDP prefixes, read by each CLI's
+    reference loader (JAX's ``hrnet_from_torch``, the port's strict
+    ``load_state_dict``) and run on the fixture's first images, fp32 on
+    both sides: counts, joints and every AP/AR stat equal within the
+    tolerances of ``test_port_cli_equals_jax_cli``."""
+    import jax
+    import litepose_tpu.models as jmodels
+    from litepose_tpu.models.higher_hrnet import HRNetSpec as JSpec
+    from litepose_tpu.models.higher_hrnet import apply_higher_hrnet, init_higher_hrnet
+    from litepose_tpu.models.layers import Policy
+
+    from litepose_tpu_torch.config import default_config, update_config
+    from litepose_tpu_torch.data.jpeg import decode_jpeg
+    from litepose_tpu_torch.data.resize import resize_linear
+    from litepose_tpu_torch.models.higher_hrnet import HRNetSpec, init_higher_hrnet as init
+    from litepose_tpu_torch.tools.valid import main
+    from test_torch_hrnet import moved, peaky
+
+    cfg = update_config(default_config(), HRNET_CFG, HRNET_OPTS)
+    spec = HRNetSpec.from_config(cfg)
+    imgs = np.stack([resize_linear(decode_jpeg(os.path.join(FIXTURE, f"{i:06d}.jpg")), (128, 128))
+                     for i in range(HRNET_IMAGES)])
+    model = peaky(moved(init(spec, torch.Generator().manual_seed(0),
+                             compute_dtype=torch.float32)), imgs, spec.num_joints, share=0.1)
+    ckpt = str(tmp_path / "hrnet.pth.tar")
+    torch.save({"state_dict": {"module." + k: v for k, v in model.state_dict().items()}}, ckpt)
+
+    def args(out, *extra):
+        return ["--cfg", HRNET_CFG, "--ann-file", os.path.join(FIXTURE, "annotations.json"),
+                "--image-dir", FIXTURE, "--batch-size", "4", "--max-images", str(HRNET_IMAGES),
+                *extra, *HRNET_OPTS, "TEST.MODEL_FILE", ckpt,
+                "OUTPUT_DIR", os.path.join(out, "output"), "LOG_DIR", os.path.join(out, "log")]
+
+    def exact(cfg, arch):
+        jspec = JSpec.from_config(cfg)
+
+        def apply_fn(params, state, x, train=False, policy=None):
+            return apply_higher_hrnet(params, state, x, jspec, train=train,
+                                      policy=Policy.exact())
+
+        return (lambda key: init_higher_hrnet(key, jspec)), apply_fn
+
+    jout, pout = str(tmp_path / "jax"), str(tmp_path / "port")
+    spec_mod = importlib.util.spec_from_file_location("jax_valid_cli_hrnet",
+                                                      os.path.join(REPO, "tools", "valid.py"))
+    cli = importlib.util.module_from_spec(spec_mod)
+    spec_mod.loader.exec_module(cli)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LITEPOSE_XLA_CACHE", jax.config.jax_compilation_cache_dir or "")
+    mp.setitem(jmodels._REGISTRY, "pose_higher_hrnet", exact)
+    mp.setattr(sys, "argv", ["valid.py"] + args(jout))
+    try:
+        want_stats = cli.main()
+    finally:
+        mp.undo()
+    run = main(args(pout, "--device", "cpu") + ["TPU.COMPUTE_DTYPE", "float32"])
+    want, got = _results(jout), _results(pout)
+    assert list(run.stats) == list(want_stats)
+    for key, value in want_stats.items():
+        assert run.stats[key] == pytest.approx(value, abs=1e-6), key
+    assert sorted(got) == sorted(want) and sum(len(p) for p in want.values()) > 0
+    for image_id, people in want.items():
+        assert len(got[image_id]) == len(people), image_id
+        for (gk, gs), (wk, ws) in zip(got[image_id], people):
+            np.testing.assert_allclose(gk[:, :2], wk[:, :2], atol=1e-3, rtol=0)
+            np.testing.assert_allclose(gk[:, 2], wk[:, 2], atol=1e-4, rtol=0)
+            assert gs == pytest.approx(ws, abs=1e-4)
