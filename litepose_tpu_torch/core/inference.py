@@ -60,10 +60,18 @@ class InferenceFlags(NamedTuple):
         )
 
 
-@functools.lru_cache(maxsize=None)
 def device_constant(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A small constant tensor, copied to ``device`` once: a fresh host copy
-    per call would make the host wait for the card's queue."""
+    per call would make the host wait for the card's queue.  Under tracing
+    (``torch.export``) it is made anew, so the cache never holds a fake
+    tensor and the program gets the constant as its own."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(values, dtype=dtype).to(device)
+    return _cached_constant(values, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_constant(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype).to(device)
 
 

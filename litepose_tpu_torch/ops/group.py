@@ -6,7 +6,9 @@ Grouping runs as a kernel on CUDA tensors and as the plain twin
 ``match_by_tag`` on CPU tensors: ``group_greedy`` (K2,
 ``csrc/group_greedy.cu``, serving) and ``group_hungarian`` (K3,
 ``csrc/group_hungarian.cu``, eval), the two modes of the TPU kernel
-``litepose_tpu/ops/pallas_group.py:_group_kernel``.  ``match_by_tag_batch``
+``litepose_tpu/ops/pallas_group.py:_group_kernel``, both reached through
+the registered ops ``torch.ops.litepose.group_greedy`` /
+``group_hungarian`` (``ops/library.py``).  ``match_by_tag_batch``
 then scatters the peaks into per-person rows.  The twin follows the TPU
 kernel, which is what the JAX decode runs: |d| for one tag dimension, one
 rounding per multiply and add; greedy rows left out by their own detection
@@ -16,11 +18,11 @@ mask, Hungarian rows by the score-sorted prefix they form.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from . import library
 from .hungarian import BIG, greedy_assign, hungarian_prefix
 from .refine import refine_batch, sqrt_rn
 from .topk import top_k_peaks_batch
@@ -204,61 +206,22 @@ def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor, cfg: StaticGroupCfg,
     return cid.to(torch.int32), n_cl.to(torch.int32)
 
 
-MAX_PEAKS = 32  # one lane per peak row
-MAX_COLUMNS = 32  # one lane per cluster column (the JV solver's M + 1)
-MAX_TAG_DIM = 8  # the widest cluster-table row (kMaxTagDim in the kernels)
-
-
-@functools.lru_cache(maxsize=None)
-def _order_on(order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The joint order as an int32 tensor on ``device``, uploaded once."""
-    return torch.tensor(order, dtype=torch.int32).to(device)
-
-
-def _group_kernel(fn, entry: str, tag_k: torch.Tensor, val_k: torch.Tensor,
+def _group_kernel(op, name: str, tag_k: torch.Tensor, val_k: torch.Tensor,
                   cfg: StaticGroupCfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Checks, the CPU twin, or one launch of the grouping kernel ``entry``
-    (counted on ``fn.launches``)."""
+    """Checks, then the op: the CPU twin, or one launch of the grouping
+    kernel (counted on ``<name>.launches``)."""
     if tag_k.dim() != 4 or val_k.shape != tag_k.shape[:3]:
         raise ValueError(
             f"expected tag (B,K,M,T) and val (B,K,M), got {tuple(tag_k.shape)} "
             f"and {tuple(val_k.shape)}")
     if tag_k.dtype != torch.float32 or val_k.dtype != torch.float32:
         raise TypeError("tag_k and val_k must be float32")
-    B, K, M, T = tag_k.shape
-    if tag_k.device.type == "cpu" and val_k.device.type == "cpu":
-        return match_by_tag(tag_k, val_k, cfg)
-    if tag_k.device.type != "cuda" or val_k.device != tag_k.device:
-        raise ValueError(f"{fn.__name__} runs on cpu or cuda, got {tag_k.device} "
+    if tag_k.device.type not in ("cpu", "cuda") or val_k.device != tag_k.device:
+        raise ValueError(f"{name} runs on cpu or cuda, got {tag_k.device} "
                          f"and {val_k.device}")
-    if not 1 <= T <= MAX_TAG_DIM:
-        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
-    if M > MAX_PEAKS or cfg.max_people > MAX_COLUMNS:
-        raise ValueError(f"the kernel takes at most {MAX_PEAKS} peaks and "
-                         f"{MAX_COLUMNS} people, got {M} and {cfg.max_people}")
-    if not (tag_k.is_contiguous() and val_k.is_contiguous()):
-        raise ValueError("tag_k and val_k must be contiguous")
-    order = tuple(int(k) for k in cfg.joint_order)
-    if any(not 0 <= k < K for k in order):
-        raise ValueError(f"joint order {order} out of range for {K} joints")
-
-    from ..kernels import build
-
-    lib = build.load()
-    dev = tag_k.device
-    order_t = _order_on(order, dev)
-    cid = torch.empty((B, K, M), dtype=torch.int32, device=dev)
-    n_cl = torch.empty((B,), dtype=torch.int32, device=dev)
-    if B:
-        err = getattr(lib, entry)(
-            tag_k.data_ptr(), val_k.data_ptr(), order_t.data_ptr(),
-            cid.data_ptr(), n_cl.data_ptr(), B, K, M, T, len(order),
-            cfg.max_people, cfg.max_clusters, cfg.detection_threshold,
-            cfg.tag_threshold, int(cfg.use_detection_val),
-            int(cfg.ignore_too_much), torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, fn.__name__)
-        fn.launches += 1
-    return cid, n_cl
+    return op(tag_k, val_k, [int(k) for k in cfg.joint_order], cfg.max_people,
+              cfg.max_clusters, cfg.detection_threshold, cfg.tag_threshold,
+              cfg.use_detection_val, cfg.ignore_too_much)
 
 
 def group_greedy(tag_k: torch.Tensor, val_k: torch.Tensor,
@@ -269,7 +232,7 @@ def group_greedy(tag_k: torch.Tensor, val_k: torch.Tensor,
     (``group_greedy.launches`` counts those launches)."""
     if cfg.assignment != "greedy":
         raise ValueError(f"group_greedy needs assignment='greedy', got {cfg.assignment!r}")
-    return _group_kernel(group_greedy, "lp_group_greedy", tag_k, val_k, cfg)
+    return _group_kernel(torch.ops.litepose.group_greedy, "group_greedy", tag_k, val_k, cfg)
 
 
 def group_hungarian(tag_k: torch.Tensor, val_k: torch.Tensor,
@@ -281,10 +244,11 @@ def group_hungarian(tag_k: torch.Tensor, val_k: torch.Tensor,
         raise ValueError(f"group_hungarian needs assignment='hungarian', got "
                          f"{cfg.assignment!r}")
     M = tag_k.shape[2] if tag_k.dim() == 4 else -1
-    if M != cfg.max_people or M + 1 > MAX_COLUMNS:
+    if M != cfg.max_people or M + 1 > library.MAX_COLUMNS:
         raise ValueError(f"hungarian grouping needs M == max_people <= "
-                         f"{MAX_COLUMNS - 1}, got M={M}, max_people={cfg.max_people}")
-    return _group_kernel(group_hungarian, "lp_group_hungarian", tag_k, val_k, cfg)
+                         f"{library.MAX_COLUMNS - 1}, got M={M}, max_people={cfg.max_people}")
+    return _group_kernel(torch.ops.litepose.group_hungarian, "group_hungarian", tag_k,
+                         val_k, cfg)
 
 
 group_greedy.launches = 0

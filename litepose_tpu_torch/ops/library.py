@@ -1,0 +1,304 @@
+"""The decode kernels as registered torch ops, ``torch.ops.litepose.*``.
+
+A ctypes call is opaque to ``torch.export``; a registered op lands in an
+exported program as one graph node, which a loaded artifact dispatches by
+its inputs' device.  The ops are defined on a ``torch.library.Library``
+with their schemas written out and registered per dispatch key: no Python
+layer sits between the dispatcher and a launch (``torch.library.custom_op``
+would add its autograd wrapper, in Python, to every call).  Each op has
+three implementations:
+
+- CUDA: one launch of the kernel in ``csrc/`` (built by ``kernels/build.py``
+  at first use), counted on its wrapper's ``launches``
+  (``ops.topk.nms_topk.launches`` / ``.loop_launches``,
+  ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
+  ``ops.refine.refine_argmax.launches``), so an artifact's launches count
+  too.  The kernels are built and loaded at the first launch.  A failed
+  build or launch raises;
+- CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
+  ``refine_argmax_ref``);
+- fake: the output shapes and dtypes, for tracing.
+
+=====================  ===  ==========================  ================================
+op                     #    kernel                      TPU kernel
+=====================  ===  ==========================  ================================
+``nms_topk``           K1   ``csrc/nms_topk.cu``        ``ops/pallas_topk.py:43``
+``nms_topk_loop``      K1'  ``csrc/nms_topk_loop.cu``   ``ops/pallas_topk.py:111``
+``group_greedy``       K2   ``csrc/group_greedy.cu``    ``ops/pallas_group.py:164``
+``group_hungarian``    K3   ``csrc/group_hungarian.cu`` ``ops/pallas_group.py:56``
+``refine_argmax``      K4   ``csrc/refine_argmax.cu``   ``ops/pallas_refine.py:38``
+=====================  ===  ==========================  ================================
+
+The grouping configuration crosses as plain arguments (the joint order as
+``int[]``, thresholds as floats that reach the kernel as ``c_float``).
+Shape and dtype checks stay in the wrappers (``ops/topk.py``,
+``ops/group.py``, ``ops/refine.py``); what depends on the card (limits of
+a kernel's geometry, contiguity, alignment) is checked here.  This module
+imports nothing of the package at import time, so a process that loads an
+artifact imports it, and through it the twins, without any model code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Tuple
+
+import torch
+from torch import Tensor
+
+HUGE_I = 2**31 - 1
+MAX_TAG_DIM = 8  # kMaxTagDim in csrc/group_common.cuh and csrc/refine_argmax.cu
+MAX_PEAKS = 32  # one lane per peak row
+MAX_COLUMNS = 32  # one lane per cluster column (the JV solver's M + 1)
+MAX_PLANES = 65535  # the kernels' grid.y
+
+_LIB = torch.library.Library("litepose", "DEF")
+_GROUP_ARGS = ("Tensor tag_k, Tensor val_k, int[] joint_order, int max_people, "
+               "int max_clusters, float detection_threshold, float tag_threshold, "
+               "bool use_detection_val, bool ignore_too_much")
+SCHEMAS = {
+    "nms_topk": "(Tensor det, int max_people, int nms_kernel) -> (Tensor, Tensor)",
+    "nms_topk_loop": "(Tensor det, int max_people, int nms_kernel) -> (Tensor, Tensor)",
+    "group_greedy": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
+    "group_hungarian": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
+    "refine_argmax": "(Tensor need, Tensor prev, Tensor det, Tensor tag) -> Tensor",
+}
+OPS = tuple(SCHEMAS)
+
+
+def _register(name: str, cuda, cpu, fake) -> None:
+    _LIB.define(name + SCHEMAS[name])
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"litepose::{name}", fake, lib=_LIB)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """``(kernels.build, the loaded kernel library)``: imported, built and
+    loaded at the first launch, not at every one."""
+    from ..kernels import build
+
+    return build, build.load()
+
+
+def _stream(t: Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _contiguous(names: str, *tensors: Tensor) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{names} must be contiguous")
+
+
+# -- K1 and K1': NMS + exact top-M ---------------------------------------------
+
+
+def nms_topk_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
+    """K1: det (B, K, H, W) fp32/bf16 -> (val (B, K, M) f32, pos (B, K, M)
+    int32), one band launch and one merge launch."""
+    from .topk import nms_topk as wrapper
+
+    _contiguous("det", det)
+    B, K, H, W = det.shape
+    if B * K > MAX_PLANES:
+        raise ValueError(f"the K1 kernel takes at most {MAX_PLANES} planes, got {B * K}")
+    build, lib = _kernels()
+    r = nms_kernel // 2
+    n_bands = lib.lp_nms_topk_bands(H, W, max_people, r)
+    if n_bands < 0:
+        widest, keys, max_m = (ctypes.c_int() for _ in range(3))
+        lib.lp_nms_topk_limits(r, ctypes.byref(widest), ctypes.byref(keys), ctypes.byref(max_m))
+        if n_bands == -1:
+            raise ValueError(f"plane width {W} exceeds the widest the K1 kernel takes for "
+                             f"nms_kernel={nms_kernel}: {widest.value} (a band of one row "
+                             f"and its halo in shared memory)")
+        raise ValueError(f"{H}x{W} planes with max_people={max_people} exceed the K1 "
+                         f"kernel's merge of {keys.value} band keys a plane "
+                         f"(max_people <= {max_m.value})")
+    val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
+    pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
+    if B * K:
+        band_keys = torch.empty((B * K, n_bands, max_people), dtype=torch.int64,
+                                device=det.device)
+        err = lib.lp_nms_topk(
+            det.data_ptr(), int(det.dtype == torch.bfloat16), band_keys.data_ptr(),
+            val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r, _stream(det))
+        build.check(err, "nms_topk")
+        wrapper.launches += 1
+    return val, pos
+
+
+def nms_topk_loop_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
+    """K1': K1's contract by ``max_people`` serial max rounds, one CTA a plane."""
+    from .topk import nms_topk as wrapper
+
+    _contiguous("det", det)
+    B, K, H, W = det.shape
+    build, lib = _kernels()
+    r = nms_kernel // 2
+    if lib.lp_nms_topk_loop_smem(H, W, max_people, r) < 0:
+        raise ValueError(f"{H}x{W} planes exceed the shared memory of the K1' kernel's "
+                         f"CTA (H row keys and 8 rows of W + {2 * r} floats)")
+    val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
+    pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
+    if B * K:
+        err = lib.lp_nms_topk_loop(det.data_ptr(), int(det.dtype == torch.bfloat16),
+                                   val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r,
+                                   _stream(det))
+        build.check(err, "nms_topk (K1')")
+        wrapper.loop_launches += 1
+    return val, pos
+
+
+def _nms_topk_twin(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
+    from .topk import nms_topk_ref
+
+    return nms_topk_ref(det, max_people, nms_kernel)
+
+
+def _nms_topk_fake(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
+    B, K = det.shape[:2]
+    return (det.new_empty((B, K, max_people), dtype=torch.float32),
+            det.new_empty((B, K, max_people), dtype=torch.int32))
+
+
+_register("nms_topk", nms_topk_cuda, _nms_topk_twin, _nms_topk_fake)
+_register("nms_topk_loop", nms_topk_loop_cuda, _nms_topk_twin, _nms_topk_fake)
+
+
+# -- K2 and K3: AE grouping ------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _order_on(order: Tuple[int, ...], device: torch.device) -> Tensor:
+    """The joint order as an int32 tensor on ``device``, uploaded once: a
+    fresh host copy per call would make the host wait for the card's queue."""
+    return torch.tensor(order, dtype=torch.int32).to(device)
+
+
+def _group_launch(entry: str, wrapper_name: str, tag_k: Tensor, val_k: Tensor,
+                  joint_order: List[int], max_people: int, max_clusters: int,
+                  detection_threshold: float, tag_threshold: float,
+                  use_detection_val: bool, ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
+    """One launch of the grouping kernel ``entry``, counted on the wrapper
+    ``ops.group.<wrapper_name>``."""
+    from . import group
+
+    B, K, M, T = tag_k.shape
+    if not 1 <= T <= MAX_TAG_DIM:
+        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
+    if M > MAX_PEAKS or max_people > MAX_COLUMNS:
+        raise ValueError(f"the kernel takes at most {MAX_PEAKS} peaks and "
+                         f"{MAX_COLUMNS} people, got {M} and {max_people}")
+    _contiguous("tag_k and val_k", tag_k, val_k)
+    order = tuple(joint_order)
+    if any(not 0 <= k < K for k in order):
+        raise ValueError(f"joint order {order} out of range for {K} joints")
+    build, lib = _kernels()
+    dev = tag_k.device
+    order_t = _order_on(order, dev)
+    cid = torch.empty((B, K, M), dtype=torch.int32, device=dev)
+    n_cl = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B:
+        err = getattr(lib, entry)(
+            tag_k.data_ptr(), val_k.data_ptr(), order_t.data_ptr(),
+            cid.data_ptr(), n_cl.data_ptr(), B, K, M, T, len(order),
+            max_people, max_clusters, detection_threshold, tag_threshold,
+            int(use_detection_val), int(ignore_too_much), _stream(tag_k))
+        build.check(err, wrapper_name)
+        getattr(group, wrapper_name).launches += 1
+    return cid, n_cl
+
+
+def group_greedy_cuda(tag_k: Tensor, val_k: Tensor, joint_order: List[int], max_people: int,
+                      max_clusters: int, detection_threshold: float, tag_threshold: float,
+                      use_detection_val: bool, ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
+    """K2: tag_k (B, K, M, T) f32, val_k (B, K, M) f32 -> (cid (B, K, M)
+    int32, n_cl (B,) int32)."""
+    return _group_launch("lp_group_greedy", "group_greedy", tag_k, val_k, joint_order,
+                         max_people, max_clusters, detection_threshold, tag_threshold,
+                         use_detection_val, ignore_too_much)
+
+
+def group_hungarian_cuda(tag_k: Tensor, val_k: Tensor, joint_order: List[int],
+                         max_people: int, max_clusters: int, detection_threshold: float,
+                         tag_threshold: float, use_detection_val: bool,
+                         ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
+    """K3: ``group_greedy``'s contract with the exact JV assignment."""
+    return _group_launch("lp_group_hungarian", "group_hungarian", tag_k, val_k, joint_order,
+                         max_people, max_clusters, detection_threshold, tag_threshold,
+                         use_detection_val, ignore_too_much)
+
+
+def _group_twin(assignment: str):
+    def twin(tag_k: Tensor, val_k: Tensor, joint_order: List[int], max_people: int,
+             max_clusters: int, detection_threshold: float, tag_threshold: float,
+             use_detection_val: bool, ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
+        from .group import StaticGroupCfg, match_by_tag
+
+        cfg = StaticGroupCfg(
+            joint_order=tuple(joint_order), max_people=max_people, max_clusters=max_clusters,
+            detection_threshold=detection_threshold, tag_threshold=tag_threshold,
+            use_detection_val=use_detection_val, ignore_too_much=ignore_too_much,
+            nms_kernel=5, nms_padding=2, assignment=assignment)
+        return match_by_tag(tag_k, val_k, cfg)
+
+    return twin
+
+
+def _group_fake(tag_k: Tensor, val_k: Tensor, joint_order: List[int], max_people: int,
+                max_clusters: int, detection_threshold: float, tag_threshold: float,
+                use_detection_val: bool, ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
+    B, K, M = tag_k.shape[:3]
+    return (tag_k.new_empty((B, K, M), dtype=torch.int32),
+            tag_k.new_empty((B,), dtype=torch.int32))
+
+
+_register("group_greedy", group_greedy_cuda, _group_twin("greedy"), _group_fake)
+_register("group_hungarian", group_hungarian_cuda, _group_twin("hungarian"), _group_fake)
+
+
+# -- K4: the penalized argmax of refine ------------------------------------------
+
+
+def refine_argmax_cuda(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) -> Tensor:
+    """K4: need (B, K, P) int32, prev (B, P, T), det (B, K, H, W), tag
+    (B, K, T, H, W) f32 -> pos (B, K, P) int32."""
+    from .refine import refine_argmax as wrapper
+
+    B, K, H, W = det.shape
+    P, T = prev.shape[1], prev.shape[2]
+    if not 1 <= T <= MAX_TAG_DIM:
+        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
+    if H * W >= HUGE_I:
+        raise ValueError(f"plane of {H}x{W} pixels overflows int32 indices")
+    if B * K > MAX_PLANES:
+        raise ValueError(f"the kernel's grid takes at most {MAX_PLANES} planes, got {B * K}")
+    _contiguous("need, prev, det and tag", need, prev, det, tag)
+    build, lib = _kernels()
+    pos = torch.empty((B, K, P), dtype=torch.int32, device=det.device)
+    if B * K and P:
+        # per (plane, slot) the max of a 64-bit (penalty, -index) key
+        best = torch.zeros((B, K, P), dtype=torch.int64, device=det.device)
+        vec = (H * W) % 4 == 0 and det.data_ptr() % 16 == 0 and tag.data_ptr() % 16 == 0
+        err = lib.lp_refine_argmax(
+            need.data_ptr(), prev.data_ptr(), det.data_ptr(), tag.data_ptr(),
+            best.data_ptr(), pos.data_ptr(), B, K, P, T, H * W, int(vec), _stream(det))
+        build.check(err, "refine_argmax")
+        wrapper.launches += 1
+    return pos
+
+
+def _refine_argmax_twin(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) -> Tensor:
+    from .refine import refine_argmax_ref
+
+    return refine_argmax_ref(need, prev, det, tag)
+
+
+def _refine_argmax_fake(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) -> Tensor:
+    return need.new_empty(need.shape, dtype=torch.int32)
+
+
+_register("refine_argmax", refine_argmax_cuda, _refine_argmax_twin, _refine_argmax_fake)

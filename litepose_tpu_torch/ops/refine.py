@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-HUGE_I = 2**31 - 1
-MAX_TAG_DIM = 8  # kMaxTagDim in csrc/refine_argmax.cu
+from . import library  # noqa: F401  registers torch.ops.litepose.*
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -85,34 +84,9 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
     devices = {t.device for t in (need, prev, det, tag)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must lie on one device, got {devices}")
-    if det.device.type == "cpu":
-        return refine_argmax_ref(need, prev, det, tag)
-    if det.device.type != "cuda":
+    if det.device.type not in ("cpu", "cuda"):
         raise ValueError(f"refine_argmax runs on cpu or cuda, not {det.device}")
-    if not 1 <= T <= MAX_TAG_DIM:
-        raise ValueError(f"the kernel takes tag dims 1 to {MAX_TAG_DIM}, got {T}")
-    if H * W >= HUGE_I:
-        raise ValueError(f"plane of {H}x{W} pixels overflows int32 indices")
-    if B * K > 65535:
-        raise ValueError(f"the kernel's grid takes at most 65535 planes, got {B * K}")
-    if not all(t.is_contiguous() for t in (need, prev, det, tag)):
-        raise ValueError("need, prev, det and tag must be contiguous")
-
-    from ..kernels import build
-
-    lib = build.load()
-    pos = torch.empty((B, K, P), dtype=torch.int32, device=det.device)
-    if B * K and P:
-        # per (plane, slot) the max of a 64-bit (penalty, -index) key
-        best = torch.zeros((B, K, P), dtype=torch.int64, device=det.device)
-        vec = (H * W) % 4 == 0 and det.data_ptr() % 16 == 0 and tag.data_ptr() % 16 == 0
-        err = lib.lp_refine_argmax(
-            need.data_ptr(), prev.data_ptr(), det.data_ptr(), tag.data_ptr(),
-            best.data_ptr(), pos.data_ptr(), B, K, P, T, H * W, int(vec),
-            torch.cuda.current_stream(det.device).cuda_stream)
-        build.check(err, "refine_argmax")
-        refine_argmax.launches += 1
-    return pos
+    return torch.ops.litepose.refine_argmax(need, prev, det, tag)
 
 
 refine_argmax.launches = 0

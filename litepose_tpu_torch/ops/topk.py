@@ -5,17 +5,18 @@
 CUDA tensor, or with ``_gather="sum"`` / ``"dot"`` ``csrc/nms_topk_loop.cu``
 (K1', the per-plane loop over a row-max vector that the JAX package keeps as
 K1's baseline; no config selects it), and runs the plain twin
-``nms_topk_ref`` for a CPU tensor; ``top_k_peaks_batch`` adds the tag
-gather and the x/y decode around K1.
+``nms_topk_ref`` for a CPU tensor, both through the registered ops
+``torch.ops.litepose.nms_topk`` / ``nms_topk_loop`` (``ops/library.py``);
+``top_k_peaks_batch`` adds the tag gather and the x/y decode around K1.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
+from . import library  # noqa: F401  registers torch.ops.litepose.*
 from .nms import heatmap_nms, top_m
 
 
@@ -52,65 +53,10 @@ def nms_topk(det: torch.Tensor, max_people: int, nms_kernel: int = 5,
     B, K, H, W = det.shape
     if not 0 < max_people <= H * W:
         raise ValueError(f"max_people {max_people} not in [1, {H * W}]")
-    if det.device.type == "cpu":
-        return nms_topk_ref(det, max_people, nms_kernel)
-    if det.device.type != "cuda":
+    if det.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_topk runs on cpu or cuda, not {det.device}")
-    if not det.is_contiguous():
-        raise ValueError("det must be contiguous")
-    if _gather != "vec":
-        return _nms_topk_loop(det, max_people, nms_kernel // 2)
-    if B * K > 65535:
-        raise ValueError(f"the K1 kernel takes at most 65535 planes, got {B * K}")
-
-    from ..kernels import build
-
-    lib = build.load()
-    r = nms_kernel // 2
-    n_bands = lib.lp_nms_topk_bands(H, W, max_people, r)
-    if n_bands < 0:
-        widest, keys, max_m = (ctypes.c_int() for _ in range(3))
-        lib.lp_nms_topk_limits(r, ctypes.byref(widest), ctypes.byref(keys), ctypes.byref(max_m))
-        if n_bands == -1:
-            raise ValueError(f"plane width {W} exceeds the widest the K1 kernel takes for "
-                             f"nms_kernel={nms_kernel}: {widest.value} (a band of one row "
-                             f"and its halo in shared memory)")
-        raise ValueError(f"{H}x{W} planes with max_people={max_people} exceed the K1 "
-                         f"kernel's merge of {keys.value} band keys a plane "
-                         f"(max_people <= {max_m.value})")
-    val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
-    pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
-    if B * K:
-        band_keys = torch.empty((B * K, n_bands, max_people), dtype=torch.int64,
-                                device=det.device)
-        stream = torch.cuda.current_stream(det.device).cuda_stream
-        err = lib.lp_nms_topk(
-            det.data_ptr(), int(det.dtype == torch.bfloat16), band_keys.data_ptr(),
-            val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r, stream)
-        build.check(err, "nms_topk")
-        nms_topk.launches += 1
-    return val, pos
-
-
-def _nms_topk_loop(det: torch.Tensor, max_people: int, r: int):
-    """K1' on a contiguous CUDA ``det`` (checked by ``nms_topk``)."""
-    from ..kernels import build
-
-    lib = build.load()
-    B, K, H, W = det.shape
-    if lib.lp_nms_topk_loop_smem(H, W, max_people, r) < 0:
-        raise ValueError(f"{H}x{W} planes exceed the shared memory of the K1' kernel's "
-                         f"CTA (H row keys and 8 rows of W + {2 * r} floats)")
-    val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
-    pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
-    if B * K:
-        stream = torch.cuda.current_stream(det.device).cuda_stream
-        err = lib.lp_nms_topk_loop(det.data_ptr(), int(det.dtype == torch.bfloat16),
-                                   val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r,
-                                   stream)
-        build.check(err, "nms_topk (K1')")
-        nms_topk.loop_launches += 1
-    return val, pos
+    op = torch.ops.litepose.nms_topk if _gather == "vec" else torch.ops.litepose.nms_topk_loop
+    return op(det, max_people, nms_kernel)
 
 
 nms_topk.launches = 0

@@ -137,6 +137,23 @@ engine = PoseEngine(model, flags, GroupParams(num_joints=14), cfg, device="cpu")
 images = np.random.default_rng(0).integers(0, 255, (2, 128, 128, 3), dtype=np.uint8)
 people, scores, n = engine.process_batch_square(images)
 assert people.shape == (2, 40, 14, 4) and np.isfinite(people).all(), people.shape
+# deployment: the serving program exported, saved, loaded and run, a
+# skeleton drawn and written as PNG, the summary, the export and demo CLIs
+import tempfile
+import litepose_tpu_torch.ops.library
+import litepose_tpu_torch.tools.demo
+import litepose_tpu_torch.tools.export
+from litepose_tpu_torch.core.export import export_engine, load_artifact, save_artifact
+from litepose_tpu_torch.utils.summary import model_summary
+from litepose_tpu_torch.utils.vis import draw_skeleton, read_png, write_png
+with tempfile.TemporaryDirectory() as tmp:
+    save_artifact(export_engine(engine, 2), tmp + "/serving.pt2")
+    got = load_artifact(tmp + "/serving.pt2", device="cpu")(torch.from_numpy(images))
+    assert all(np.array_equal(g.numpy(), w) for g, w in zip(got, (people, scores, n)))
+    canvas = draw_skeleton(images[0], [people[0, 0]])
+    write_png(tmp + "/canvas.png", canvas)
+    assert np.array_equal(read_png(tmp + "/canvas.png"), canvas)
+assert model_summary(model, arch).startswith("parameters: ")
 # the eval protocol (defaults: hungarian, refine, projection) with flip test
 # on a non-square image
 evaluator = PoseEngine(model, flags._replace(flip_test=True,
@@ -213,8 +230,10 @@ def test_port_runs_without_jax():
     imports the eval CLI's modules and the NAS pipeline's (the train,
     search, weight-transfer, BN-fusion, arch and calibration CLIs), runs the
     supernet at a sampled arch and extracts it, builds and runs the three
-    baseline families from their configs and K1' (its twin), then checks
-    ``sys.modules``."""
+    baseline families from their configs and K1' (its twin), exports the
+    serving program and runs the loaded artifact, draws and writes a
+    skeleton as PNG, imports the op library, the summary and the export and
+    demo CLIs, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
