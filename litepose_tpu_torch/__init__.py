@@ -12,5 +12,7 @@ dataset eval CLI (``tools.valid``), training (``train.trainer.StepFns``,
 ``tools.make_bench_ckpt``), the NAS CLIs, the baseline families, and
 deployment (``core.export``: the serving program as a ``torch.export``
 artifact with the kernels as ``torch.ops.litepose.*``; ``tools.export``,
-``tools.demo``, ``utils.vis``, ``utils.summary``).
+``tools.demo``, ``utils.vis``, ``utils.summary``), and data parallelism
+(``parallel``: multi-process training with JAX's global BN statistics,
+``PoseEngine(mesh=)``, the eval CLI's ``--devices``).
 """

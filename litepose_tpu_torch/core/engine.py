@@ -1,5 +1,5 @@
 """PoseEngine: uint8 images -> people (counterpart of
-``litepose_tpu/core/engine.py``, one device).
+``litepose_tpu/core/engine.py``).
 
 A batch runs normalization, the forward pass (with flip test), stage
 aggregation, the projection to the input size and the decode on the
@@ -14,11 +14,25 @@ the fixed-size people arrays come back to the host.
 - ``process_indexed`` / ``process_many``: the same for many images,
   bucketed by warped shape and run in batches, the host's warps of the
   next batch overlapping the card's work on the current one.
+
+With ``mesh=`` (a sequence of devices, ``parallel.make_mesh``) the engine
+is data-parallel, as the JAX engine under ``shard_map`` is: the model is
+copied to every device, and ``process_batch_square`` and
+``process_indexed`` split each batch into one equal shard a device, each
+shard running the whole single-device program (forward and decode, its
+kernels on its own card) on a host thread of its own, under that device
+and a stream of its own.  Threads, because the decode waits for the card
+mid-way (the peak counts decide the grouping's work): one host thread
+driving every device would run them in turn.  A shard's people equal,
+bit for bit, the single-device engine's on the same chunk of images.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,6 +41,7 @@ import torch
 from ..data.affine import (get_affine_transform, get_final_preds,
                            get_multi_scale_size, warp_image)
 from ..ops.group import GroupParams, StaticGroupCfg, parse_batch
+from ..parallel.mesh import gather, replicate, shard_batch
 from .inference import InferenceFlags, make_infer_fn, resize_bilinear
 
 
@@ -63,24 +78,31 @@ Result = Tuple[List[np.ndarray], List[float]]
 
 
 class PoseEngine:
-    """Batched pose estimation on one device.
+    """Batched pose estimation on one device, or data-parallel over a mesh.
 
     Args:
       apply_fn: ``(B, 3, H, W) normalized images -> [NCHW stage outputs]``,
         for example a ``LitePose`` in eval mode, already on ``device``.
+        With a mesh, the ``nn.Module`` itself (it is copied to each device).
       flags: stage aggregation and flip-test configuration.
       group: decode thresholds and joint order.
       config: EngineConfig.
       device: where the batch runs, the card unless the caller names
         another: CUDA launches the kernels, ``device="cpu"`` runs their
         plain twins.  A CUDA device without a card raises here.
+      mesh: devices to split each batch over (``device`` is then ignored);
+        a device may appear more than once (replicas sharing a card, each
+        on its own stream).  Call :meth:`close` to stop its threads.
     """
 
     def __init__(self, apply_fn: Callable[[torch.Tensor], List[torch.Tensor]],
                  flags: InferenceFlags, group: GroupParams,
-                 config: EngineConfig, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 config: EngineConfig, device="cuda",
+                 mesh: Optional[Sequence[torch.device]] = None):
+        self.mesh = None if mesh is None else tuple(torch.device(d) for d in mesh)
+        self.device = self.mesh[0] if self.mesh else torch.device(device)
+        if any(d.type == "cuda" for d in self.mesh or (self.device,)) \
+                and not torch.cuda.is_available():
             raise RuntimeError("PoseEngine: no CUDA device; pass device=\"cpu\" to run "
                                "the plain twins on the host")
         self.apply_fn = apply_fn
@@ -91,6 +113,23 @@ class PoseEngine:
             group, assignment=config.assignment, topk_method=config.topk_method)
         self.config = config
         self._infer: Dict[Tuple[Tuple[int, int], Optional[Tuple[int, int]]], Callable] = {}
+        if self.mesh is not None:
+            if not isinstance(apply_fn, torch.nn.Module):
+                raise TypeError("PoseEngine(mesh=...) copies the model to each device: pass "
+                                "the nn.Module, not a function")
+            self._shards = [PoseEngine(m, flags, group, config, device=d)
+                            for m, d in zip(replicate(apply_fn, self.mesh), self.mesh)]
+            self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                             for d in self.mesh]
+            # one thread a shard: a shard's batches run in order, on its stream
+            self._threads = [ThreadPoolExecutor(1, thread_name_prefix=f"PoseEngine-shard{i}")
+                             for i in range(len(self.mesh))]
+
+    def close(self) -> None:
+        """Stop the mesh's shard threads (a no-op on one device)."""
+        if self.mesh is not None:
+            for t in self._threads:
+                t.shutdown(wait=True)
 
     def infer_fn(self, in_hw: Tuple[int, int],
                  out_hw: Optional[Tuple[int, int]]) -> Callable:
@@ -123,19 +162,64 @@ class PoseEngine:
         """uint8 (B, H, W, 3) images -> (det, tag, people, scores, counts),
         all on the engine's device: det (B, J, h, w), tag (B, J, T, h, w),
         people (B, P, K, 3+T) in heatmap coordinates (the maps are projected
-        to (H, W) when ``project2image``)."""
+        to (H, W) when ``project2image``).  On a mesh the shards' outputs
+        are gathered on its first device."""
+        if self.mesh is not None:
+            parts = [f.result() for f in self._submit(self._shard_batch, images_u8)]
+            return tuple(gather([p[i] for p in parts]) for i in range(5))
         det, tag = self._maps(images_u8, self.config.project2image)
         return (det, tag) + tuple(self._decode(det, tag))
+
+    # -- the mesh ---------------------------------------------------------------
+
+    def _submit(self, fn: Callable, images_u8) -> List[Future]:
+        """``fn(shard index, shard)`` for each equal shard of the batch, on
+        the shard's thread; raises when the batch does not divide."""
+        shards = shard_batch(images_u8, len(self.mesh))
+        return [t.submit(fn, i, x) for i, (t, x) in enumerate(zip(self._threads, shards))]
+
+    def _on_shard(self, i: int):
+        """The shard's device and stream made current on this thread."""
+        stack = contextlib.ExitStack()
+        if self._streams[i] is not None:
+            stack.enter_context(torch.cuda.device(self.mesh[i]))
+            stack.enter_context(torch.cuda.stream(self._streams[i]))
+        return stack
+
+    def _shard_batch(self, i: int, images_u8):
+        """Shard ``i``'s ``run_batch``, its stream drained so that other
+        threads and streams may read the outputs."""
+        with self._on_shard(i):
+            out = self._shards[i].run_batch(images_u8)
+            if self._streams[i] is not None:
+                self._streams[i].synchronize()
+            return out
+
+    def _shard_people(self, i: int, images_u8):
+        """Shard ``i``'s people on the host: (heatmap (h, w), people,
+        scores, counts as numpy)."""
+        det, _, people, scores, n = self._shard_batch(i, images_u8)
+        return _host_people(det, people, scores, n)
+
+    @staticmethod
+    def _gather_people(futures: Sequence[Future]):
+        """The shards' host people put back together: (hm_hw, people,
+        scores, counts)."""
+        parts = [f.result() for f in futures]
+        return (parts[0][0],) + tuple(gather([p[i] for p in parts]) for i in (1, 2, 3))
 
     def process_batch_square(self, images_u8):
         """Serving path: a batch of images pre-resized to the square
         ``input_size``.  Returns numpy (people (B, P, K, 3+T) in heatmap
         coordinates, scores (B, P), counts (B,)); callers map coordinates
-        with their own inverse affines."""
+        with their own inverse affines.  On a mesh the batch must divide
+        into one equal shard a device."""
         size = self.config.input_size
         shape = tuple(np.shape(images_u8))
         if len(shape) != 4 or shape[1:] != (size, size, 3):
             raise ValueError(f"expected images (B, {size}, {size}, 3), got {shape}")
+        if self.mesh is not None:
+            return self._gather_people(self._submit(self._shard_people, images_u8))[1:]
         _, _, people, scores, n = self.run_batch(images_u8)
         return people.cpu().numpy(), scores.cpu().numpy(), n.cpu().numpy()
 
@@ -164,7 +248,11 @@ class PoseEngine:
     def process(self, image_rgb_u8: np.ndarray) -> Result:
         """Multi-scale + flip eval of one image (reference ``valid.py``
         semantics).  Returns (people: list of (K, 3+T) arrays in source
-        coordinates, scores)."""
+        coordinates, scores).  On a mesh, one image runs on its first
+        device."""
+        if self.mesh is not None:
+            with self._on_shard(0):
+                return self._shards[0].process(image_rgb_u8)
         scales = sorted(self.config.scale_factors, reverse=True)
         if scales == [1.0]:
             img, center, scale = self._warp(image_rgb_u8, 1.0)
@@ -218,6 +306,11 @@ class PoseEngine:
         only then are batch k's people copied back.  Per-image results equal
         :meth:`process`.  Multi-scale configurations run image by image.
 
+        On a mesh, ``batch_size`` is rounded down to a multiple of the
+        device count (at least one image a device), as in JAX, and each
+        batch's shards run on their threads while the host warps the next
+        batch.
+
         Returns ``(people, scores)`` per image, in input order."""
         if tuple(self.config.scale_factors) != (1.0,):
             out = []
@@ -234,13 +327,16 @@ class PoseEngine:
             metas.append((size, center, scale))
             buckets.setdefault((int(size[1]), int(size[0])), []).append(i)
 
+        if self.mesh is not None:
+            n_dev = len(self.mesh)
+            batch_size = max(n_dev, batch_size // n_dev * n_dev)
         results: List[Optional[Result]] = [None] * len(shapes)
         done = 0
         pin = self.device.type == "cuda"
 
         def drain(pending) -> int:
-            chunk, people, scores, n, hm_hw = pending
-            people, scores, n = people.cpu().numpy(), scores.cpu().numpy(), n.cpu().numpy()
+            chunk, fetch = pending
+            hm_hw, people, scores, n = fetch()
             for j, i in enumerate(chunk):
                 _, center, scale = metas[i]
                 results[i] = self._finalize_one(people[j], scores[j], int(n[j]),
@@ -259,12 +355,17 @@ class PoseEngine:
                     size, center, scale = metas[i]
                     mat = get_affine_transform(center, scale, 0, size)
                     view[j] = warp_image(load_fn(i), mat, size)
-                det, _, people, scores, n = self.run_batch(batch)
+                if self.mesh is not None:
+                    fetch = functools.partial(self._gather_people,
+                                              self._submit(self._shard_people, batch))
+                else:
+                    det, _, people, scores, n = self.run_batch(batch)
+                    fetch = functools.partial(_host_people, det, people, scores, n)
                 if pending is not None:
                     done += drain(pending)
                     if progress_cb is not None:
                         progress_cb(done)
-                pending = (chunk, people, scores, n, tuple(det.shape[-2:]))
+                pending = (chunk, fetch)
         if pending is not None:
             done += drain(pending)
             if progress_cb is not None:
@@ -277,3 +378,9 @@ class PoseEngine:
         return self.process_indexed([img.shape[:2] for img in images],
                                     lambda i: images[i], batch_size=batch_size,
                                     progress_cb=progress_cb)
+
+
+def _host_people(det: torch.Tensor, people: torch.Tensor, scores: torch.Tensor,
+                 n: torch.Tensor):
+    """A batch's (heatmap (h, w), people, scores, counts) on the host."""
+    return tuple(det.shape[-2:]), people.cpu().numpy(), scores.cpu().numpy(), n.cpu().numpy()

@@ -17,7 +17,10 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
   ``beta - mean * inv`` is added in the activation dtype.  Folding in
   another order gives other bf16 weights than the JAX model.
 * In training mode every BN is a plain ``nn.BatchNorm2d`` (batch
-  statistics, momentum 0.1, eps 1e-5), as ``layers.batch_norm`` is.
+  statistics, momentum 0.1, eps 1e-5), as ``layers.batch_norm`` is; under
+  a process group of more than one rank it takes the global statistics of
+  every rank's batch (``bn_train``), as ``jnp.mean`` over a batch sharded
+  on JAX's mesh does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import make_divisible
+from ..parallel.mesh import sync_batch_stats, world
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -52,6 +56,27 @@ def fold_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype):
         return (conv.weight.float() * inv[:, None, None, None]).to(dtype), bias
 
 
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """A BN in training mode.  In one process ``bn(x)``.  Under a process
+    group of more than one rank, JAX's ``batch_norm`` (train branch) over
+    the global batch: fp32 statistics from ``sync_batch_stats``, running
+    statistics moved by momentum 0.1 with the unbiased variance of the
+    global count, ``(x - mean) * rsqrt(var + eps) * scale + bias`` in fp32
+    (float64 for a float64 input), ``x.dtype`` out."""
+    if world().size == 1:
+        return bn(x)
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean, var, n = sync_batch_stats(x32, (0, 2, 3))
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean.detach())
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var.detach() * (n / max(n - 1, 1)))
+        bn.num_batches_tracked.add_(1)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x32 - mean[:, None, None]) * inv[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
             dtype: torch.dtype) -> torch.Tensor:
     """conv followed by BN: batch statistics in training; at eval the
@@ -59,7 +84,7 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
     if bn.training:
         y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
                      conv.padding, conv.dilation, conv.groups)
-        return bn(y)
+        return bn_train(y, bn)
     if hasattr(conv, "folded_w"):
         w, bias = conv.folded_w, conv.folded_b
     else:
@@ -73,7 +98,7 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """A BN with no conv to fold into: at eval ``x * inv + bias`` in the
     activation dtype (``layers.batch_norm``, eval branch)."""
     if bn.training:
-        return bn(x)
+        return bn_train(x, bn)
     inv, bias = bn_affine(bn)
     return x * inv.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
 

@@ -49,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import ArchConfig, ArchManager, StageConfig
+from ..parallel.mesh import sync_batch_stats
 from . import layers as L
 from .litepose import STEM_CHANNELS, LitePose, ModelSpec
 
@@ -115,12 +116,11 @@ def masked_bn(bn: nn.BatchNorm2d, x: torch.Tensor, mask: torch.Tensor,
     """BN whose running statistics move, and whose output exists, only on
     active channels (JAX ``masked_bn``); fp32 inside (float64 for a float64
     input), ``x.dtype`` out.  In training the statistics are updated in
-    place."""
+    place; under a process group they are the global batch's
+    (``sync_batch_stats``), as JAX's over a batch sharded on the mesh."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     if train:
-        mean = x32.mean(dim=(0, 2, 3))
-        var = x32.var(dim=(0, 2, 3), unbiased=False)
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean, var, n = sync_batch_stats(x32, (0, 2, 3))
         with torch.no_grad():
             live = mask > 0
             m = L.BN_MOMENTUM

@@ -9,12 +9,17 @@ would add its autograd wrapper, in Python, to every call).  Each op has
 three implementations:
 
 - CUDA: one launch of the kernel in ``csrc/`` (built by ``kernels/build.py``
-  at first use), counted on its wrapper's ``launches``
+  at first use), on the inputs' card (the implementation runs under
+  ``torch.cuda.device`` of its first tensor: the ctypes launch and
+  ``cudaFuncSetAttribute`` act on the calling thread's current device,
+  which a mesh engine's shard thread need not have set), counted on its
+  wrapper's ``launches``
   (``ops.topk.nms_topk.launches`` / ``.loop_launches``,
   ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
   ``ops.refine.refine_argmax.launches``), so an artifact's launches count
-  too.  The kernels are built and loaded at the first launch.  A failed
-  build or launch raises;
+  too (under a lock: shard threads launch at once).  The kernels are built
+  and loaded at the first launch, by one thread.  A failed build or launch
+  raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
   ``refine_argmax_ref``);
 - fake: the output shapes and dtypes, for tracing.
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, Tuple
 
 import torch
@@ -74,13 +80,41 @@ def _register(name: str, cuda, cpu, fake) -> None:
     torch.library.register_fake(f"litepose::{name}", fake, lib=_LIB)
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """``(kernels.build, the loaded kernel library)``: imported, built and
-    loaded at the first launch, not at every one."""
+def _load_kernels():
     from ..kernels import build
 
     return build, build.load()
+
+
+def _kernels():
+    """``(kernels.build, the loaded kernel library)``: imported, built and
+    loaded at the first launch, not at every one, and by one thread while
+    the others wait (two builds at once would write the same objects)."""
+    with _BUILD_LOCK:
+        return _load_kernels()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count.  Under a lock: ``+=`` on an
+    attribute is a read, an add and a write, which the shard threads of a
+    mesh engine could interleave and so lose a launch."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _on_its_device(impl):
+    """``impl`` run under its first tensor's device (see the module doc)."""
+    @functools.wraps(impl)
+    def run(t: Tensor, *args):
+        with torch.cuda.device(t.device):
+            return impl(t, *args)
+
+    return run
 
 
 def _stream(t: Tensor):
@@ -95,6 +129,7 @@ def _contiguous(names: str, *tensors: Tensor) -> None:
 # -- K1 and K1': NMS + exact top-M ---------------------------------------------
 
 
+@_on_its_device
 def nms_topk_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
     """K1: det (B, K, H, W) fp32/bf16 -> (val (B, K, M) f32, pos (B, K, M)
     int32), one band launch and one merge launch."""
@@ -126,10 +161,11 @@ def nms_topk_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor
             det.data_ptr(), int(det.dtype == torch.bfloat16), band_keys.data_ptr(),
             val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r, _stream(det))
         build.check(err, "nms_topk")
-        wrapper.launches += 1
+        count_launch(wrapper)
     return val, pos
 
 
+@_on_its_device
 def nms_topk_loop_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
     """K1': K1's contract by ``max_people`` serial max rounds, one CTA a plane."""
     from .topk import nms_topk as wrapper
@@ -148,7 +184,7 @@ def nms_topk_loop_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[T
                                    val.data_ptr(), pos.data_ptr(), B * K, H, W, max_people, r,
                                    _stream(det))
         build.check(err, "nms_topk (K1')")
-        wrapper.loop_launches += 1
+        count_launch(wrapper, "loop_launches")
     return val, pos
 
 
@@ -208,10 +244,11 @@ def _group_launch(entry: str, wrapper_name: str, tag_k: Tensor, val_k: Tensor,
             max_people, max_clusters, detection_threshold, tag_threshold,
             int(use_detection_val), int(ignore_too_much), _stream(tag_k))
         build.check(err, wrapper_name)
-        getattr(group, wrapper_name).launches += 1
+        count_launch(getattr(group, wrapper_name))
     return cid, n_cl
 
 
+@_on_its_device
 def group_greedy_cuda(tag_k: Tensor, val_k: Tensor, joint_order: List[int], max_people: int,
                       max_clusters: int, detection_threshold: float, tag_threshold: float,
                       use_detection_val: bool, ignore_too_much: bool) -> Tuple[Tensor, Tensor]:
@@ -222,6 +259,7 @@ def group_greedy_cuda(tag_k: Tensor, val_k: Tensor, joint_order: List[int], max_
                          use_detection_val, ignore_too_much)
 
 
+@_on_its_device
 def group_hungarian_cuda(tag_k: Tensor, val_k: Tensor, joint_order: List[int],
                          max_people: int, max_clusters: int, detection_threshold: float,
                          tag_threshold: float, use_detection_val: bool,
@@ -263,6 +301,7 @@ _register("group_hungarian", group_hungarian_cuda, _group_twin("hungarian"), _gr
 # -- K4: the penalized argmax of refine ------------------------------------------
 
 
+@_on_its_device
 def refine_argmax_cuda(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) -> Tensor:
     """K4: need (B, K, P) int32, prev (B, P, T), det (B, K, H, W), tag
     (B, K, T, H, W) f32 -> pos (B, K, P) int32."""
@@ -287,7 +326,7 @@ def refine_argmax_cuda(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) -> 
             need.data_ptr(), prev.data_ptr(), det.data_ptr(), tag.data_ptr(),
             best.data_ptr(), pos.data_ptr(), B, K, P, T, H * W, int(vec), _stream(det))
         build.check(err, "refine_argmax")
-        wrapper.launches += 1
+        count_launch(wrapper)
     return pos
 
 

@@ -1,9 +1,10 @@
 """Training CLI (the counterpart of ``tools/train.py``, the reference
-``dist_train.py`` flow) on one device.
+``dist_train.py`` flow), on one device or one process per card.
 
   python -m litepose_tpu_torch.tools.train --cfg configs/crowd_pose/mobilenet/mobile.yaml \\
       [--superconfig arch.json] [--teacher --teacher-arch t.json --teacher-ckpt t.msgpack] \\
       [--ann-file ann.json --image-dir images/] [--device cuda] [KEY VALUE ...]
+  torchrun --nproc_per_node=N -m litepose_tpu_torch.tools.train --multi-host --cfg ... [KEY VALUE ...]
 
 The arch: ``--superconfig`` (at ``DATASET.INPUT_SIZE``), else the max arch
 for the supernet ``pose_supermobilenet``, else ``fixed_sample(ratio=1.0)``.
@@ -17,16 +18,31 @@ directory ``OUTPUT_DIR/<dataset>/<model>/<cfg name>`` gets the log,
 ``checkpoint.msgpack`` every ``--save-freq`` epochs (auto-resumed when
 ``AUTO_RESUME``) and ``final_state.msgpack``; both packages read them.
 
+``--multi-host`` joins a process group (``parallel.init_distributed``):
+torchrun's environment, or ``--coordinator host:port`` (or an init-method
+URL such as ``file:///shared/rendezvous``) with ``--num-processes`` and
+``--process-id``.  Each rank runs on ``cuda:LOCAL_RANK`` (NCCL), or on the
+host with ``--device cpu`` (gloo), takes ``TRAIN.IMAGES_PER_GPU`` images a
+step from its shard of each epoch (``make_batch_iterator``'s
+``process_index`` / ``process_count``), and steps on the global batch
+(SyncBN statistics, gradients and metrics averaged over the ranks:
+``train.trainer``); an epoch is ``len(dataset) // (IMAGES_PER_GPU * world
+size)`` steps.  Every rank starts from the same seeded weights and resumes
+from the same checkpoint; rank 0 alone writes checkpoints and the final
+weights, logs to the console and to TensorBoard; each rank writes its own
+log file.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
+second epoch on rank 0 (the first is warm-up).
+
 ``--device cuda`` (the default) raises without a card; ``--device cpu``
 trains on the host.  The baseline families (``pose_higher_hrnet``,
 ``pose_efficient_hrnet``, ``pose_resnet``) and ``pose_superresnet`` raise
-``NotImplementedError``: their training is not held to JAX's yet (ROADMAP M10).  One device only: ``--multi-host`` raises (DDP waits
-for ROADMAP M8).
+``NotImplementedError``: their training is not held to JAX's yet (ROADMAP M10).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -55,7 +71,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--image-dir", default=None, help="override image directory")
     p.add_argument("--save-freq", type=int, default=1, help="checkpoint every N epochs")
     p.add_argument("--multi-host", action="store_true",
-                   help="multi-process training; not ported yet (ROADMAP M8)")
+                   help="one process per card: join a process group (torchrun's "
+                        "environment or --coordinator)")
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous host:port, or an init-method URL (tcp://, file://)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the second epoch (rank 0) here")
     p.add_argument("--device", default="cuda",
                    help="cuda (raises without a card) or cpu")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
@@ -93,19 +116,29 @@ def _teacher(args, cfg, dtype, device):
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = parse_args(argv)
-    if args.multi_host:
-        raise NotImplementedError("--multi-host: training on more than one device is not "
-                                  "ported yet (ROADMAP M8, DDP + SyncBN)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the host")
+    if not args.multi_host:
+        return _train(args, device)
+    from ..parallel import destroy_distributed, init_distributed
 
+    device = init_distributed(device.type, args.coordinator, args.num_processes,
+                              args.process_id)
+    try:
+        return _train(args, device)
+    finally:
+        destroy_distributed()
+
+
+def _train(args: argparse.Namespace, device: torch.device) -> TrainRun:
     from ..arch import ArchManager, load_arch
     from ..config import check_config, default_config, update_config
     from ..core.losses import LossConfig
     from ..data.dataset import PipelineConfig, PoseDataset, TrainPipeline, make_batch_iterator
     from ..models import FAMILIES, get_model
     from ..models.super_litepose import arch_to_mask_desc
+    from ..parallel import barrier, world
     from ..train import optim
     from ..train.checkpoint import (auto_resume, init_train_state, load_pretrained_backbone,
                                     save_checkpoint, save_params)
@@ -120,10 +153,12 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
         raise NotImplementedError(f"training {cfg.MODEL.NAME} is not ported yet: ROADMAP M10 "
                                   f"(the baseline families train once their steps are held "
                                   f"to JAX's)")
+    rank, n_ranks, backend = world()
     out_dir, tb_dir = create_run_dirs(cfg, args.cfg)
-    logger = setup_logger(out_dir)
-    writer = make_tb_writer(tb_dir)
-    logger.info(f"device: {device}")
+    logger = setup_logger(out_dir, rank=rank)
+    writer = make_tb_writer(tb_dir) if rank == 0 else None
+    logger.info(f"device: {device}; rank {rank} of {n_ranks}"
+                + (f" ({backend})" if backend else ""))
 
     manager = ArchManager(deconv_setting=cfg.MODEL.EXTRA.NUM_DECONV_FILTERS, seed=cfg.SEED)
     is_supernet = cfg.MODEL.NAME == "pose_supermobilenet"
@@ -152,7 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
                      style=style, with_center=cfg.DATASET.WITH_CENTER)
     pipe = TrainPipeline(ds, PipelineConfig.from_config(cfg), seed=cfg.SEED)
     batch_size = cfg.TRAIN.IMAGES_PER_GPU
-    steps_per_epoch = max(len(pipe) // batch_size, 1)
+    steps_per_epoch = max(len(pipe) // (batch_size * n_ranks), 1)
     opt, sched = optim.from_config(cfg, model.parameters(), steps_per_epoch)
 
     sfns = StepFns(LossConfig.from_config(cfg), base_input_size=cfg.DATASET.INPUT_SIZE,
@@ -172,19 +207,43 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
             return arch_to_mask_desc(manager.random_sample(rng))
 
     epochs = []
-    for epoch in range(ts.epoch, cfg.TRAIN.END_EPOCH):
-        it = make_batch_iterator(pipe, batch_size, epoch, shuffle=cfg.TRAIN.SHUFFLE)
-        ts, metrics = train_epoch(sfns, ts, it, epoch, logger=logger, print_freq=cfg.PRINT_FREQ,
-                                  elastic_sizes=elastic, arch_sampler=arch_sampler,
-                                  seed=cfg.SEED, writer=writer)
+    start_epoch = ts.epoch
+    for epoch in range(start_epoch, cfg.TRAIN.END_EPOCH):
+        # the second epoch: the first is warm-up (allocator, cuDNN plans)
+        profiler = _profiler(device) if args.profile_dir and rank == 0 \
+            and epoch == start_epoch + 1 else None
+        it = make_batch_iterator(pipe, batch_size, epoch, shuffle=cfg.TRAIN.SHUFFLE,
+                                 process_index=rank, process_count=n_ranks)
+        with profiler or contextlib.nullcontext():
+            ts, metrics = train_epoch(sfns, ts, it, epoch, logger=logger,
+                                      print_freq=cfg.PRINT_FREQ, elastic_sizes=elastic,
+                                      arch_sampler=arch_sampler, seed=cfg.SEED, writer=writer)
         ts = ts._replace(epoch=epoch + 1)
         epochs.append(metrics)
-        if (epoch + 1) % args.save_freq == 0 or epoch + 1 == cfg.TRAIN.END_EPOCH:
-            save_checkpoint(out_dir, ts)
+        if profiler is not None:
+            os.makedirs(args.profile_dir, exist_ok=True)
+            path = os.path.join(args.profile_dir, f"train_epoch{epoch}_rank{rank}.json")
+            profiler.export_chrome_trace(path)
+            logger.info(f"profiler trace written to {path}")
+        if rank == 0 and ((epoch + 1) % args.save_freq == 0
+                          or epoch + 1 == cfg.TRAIN.END_EPOCH):
+            logger.info(f"checkpoint written to {save_checkpoint(out_dir, ts)}")
         logger.info(f"epoch {epoch} done: {metrics}")
-    save_params(os.path.join(out_dir, "final_state.msgpack"), ts.model)
+    if rank == 0:
+        save_params(os.path.join(out_dir, "final_state.msgpack"), ts.model)
+    barrier(device)  # every rank returns once the files exist
     logger.info("training complete")
     return TrainRun(ts, out_dir, epochs)
+
+
+def _profiler(device: torch.device):
+    """A ``torch.profiler`` session over the host and, on a card, its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ conv compute type (``bfloat16``, the JAX CLI's policy, or ``float32``).
 ``--device cuda`` (the default) runs the kernels on the card and raises
 without one; ``--device cpu`` runs their plain twins.  ``--batch-size 1``
 runs the per-image loop (``PoseEngine.process``), more drives
-``process_indexed``.  Only one device: ``--devices`` above 1 raises.
+``process_indexed``.  ``--devices N`` shards the batched single-scale path
+over the first N cards (``PoseEngine(mesh=parallel.make_mesh(N))``; with
+``--device cpu``, N replicas on the host), as the JAX CLI shards it over
+its mesh; asking for more cards than are visible raises, and any other
+path warns and runs on one device.
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="images per eval batch (grouped by resize-ladder shape; "
                         "1 = the reference's per-image loop)")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to evaluate on; only 1 is ported (ROADMAP M11)")
+                   help="data-parallel eval over the first N devices (batched single-scale "
+                        "path only; batches shard across them)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels; raises without a card) or cpu (their plain twins)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
@@ -109,7 +114,7 @@ def build_model(cfg, arch, device):
     return model.to(device)
 
 
-def build_engine(cfg, model, device):
+def build_engine(cfg, model, device, mesh=None):
     from ..core.engine import EngineConfig, PoseEngine
     from ..core.inference import InferenceFlags
     from ..data.flip import flip_index_for
@@ -118,7 +123,7 @@ def build_engine(cfg, model, device):
     flags = InferenceFlags.from_config(
         cfg, flip_index_for(cfg.DATASET.DATASET, cfg.DATASET.WITH_CENTER))
     return PoseEngine(model, flags, GroupParams.from_config(cfg), EngineConfig.from_config(cfg),
-                      device=device)
+                      device=device, mesh=mesh)
 
 
 def prepare(args: argparse.Namespace):
@@ -127,11 +132,9 @@ def prepare(args: argparse.Namespace):
     from ..arch import ArchManager, load_arch
     from ..config import check_config, default_config, update_config
     from ..data.dataset import PoseDataset
+    from ..parallel import make_mesh
     from ..utils.logging import create_run_dirs, setup_logger
 
-    if args.devices > 1:
-        raise NotImplementedError(f"--devices {args.devices}: evaluation on more than one "
-                                  f"device is not ported yet (ROADMAP M11)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run the plain twins on the host")
@@ -147,6 +150,14 @@ def prepare(args: argparse.Namespace):
                          f"as the dataset's joints")
     out_dir, _ = create_run_dirs(cfg, args.cfg, phase="valid")
     logger = setup_logger(out_dir, phase="valid")
+    single_scale = tuple(float(s) for s in cfg.TEST.SCALE_FACTOR) == (1.0,)
+    if args.devices > 1 and (args.batch_size <= 1 or not single_scale):
+        # the mesh only shards the batched single-scale path; anything else
+        # would copy the model to every device and run on one
+        logger.warning("--devices ignored: data-parallel eval needs --batch-size > 1 "
+                       "and single-scale TEST.SCALE_FACTOR [1]")
+        args.devices = 1
+    mesh = make_mesh(args.devices, device.type) if args.devices > 1 else None
 
     if args.superconfig:
         arch = load_arch(args.superconfig)
@@ -161,7 +172,7 @@ def prepare(args: argparse.Namespace):
     model = build_model(cfg, arch, device)
     if cfg.TEST.MODEL_FILE:
         logger.info(f"loaded weights from {cfg.TEST.MODEL_FILE}")
-    engine = build_engine(cfg, model, device)
+    engine = build_engine(cfg, model, device, mesh)
 
     style = "coco" if "coco" in cfg.DATASET.DATASET else "crowdpose"
     split, root = cfg.DATASET.TEST, cfg.DATASET.ROOT
@@ -202,11 +213,14 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalRun:
                 last_logged[0] = done
                 logger.info(f"eval {done}/{n} ({done / (time.perf_counter() - t0):.2f} img/s)")
 
-        for people, scores in engine.process_indexed([ds.image_size(i) for i in range(n)], load,
-                                                     batch_size=args.batch_size,
-                                                     progress_cb=progress):
-            all_preds.append(people)
-            all_scores.append(scores)
+        try:
+            for people, scores in engine.process_indexed([ds.image_size(i) for i in range(n)],
+                                                         load, batch_size=args.batch_size,
+                                                         progress_cb=progress):
+                all_preds.append(people)
+                all_scores.append(scores)
+        finally:
+            engine.close()
     else:
         for i in range(n):
             people, scores = engine.process(load(i))
@@ -218,7 +232,8 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalRun:
     ds.ids = ds.ids[:n]
     stats = ds.evaluate(all_preds, all_scores, output_dir=out_dir)
     print_name_value(logger, stats, cfg.MODEL.NAME)
-    logger.info(f"{n} images in {seconds:.3f} s ({n / seconds:.2f} img/s on {device}); JPEG "
+    on = ", ".join(str(d) for d in engine.mesh) if engine.mesh else str(device)
+    logger.info(f"{n} images in {seconds:.3f} s ({n / seconds:.2f} img/s on {on}); JPEG "
                 f"decode {1e3 * decode_s[0] / n:.2f} host ms per image")
     return EvalRun(stats, all_preds, all_scores, seconds, decode_s[0])
 

@@ -22,6 +22,19 @@ Two behaviours of the JAX step need care in PyTorch:
   supernet block's ``lin5`` / ``lin3`` at kernel 7) gets a zero gradient,
   which weight decay and Adam's moments still act on; PyTorch's optimizers
   skip a parameter whose gradient is None, so the step fills in zeros.
+
+Under a process group (``parallel.init_distributed``) each rank steps on
+its shard of the global batch, as JAX's step runs on its shard of a mesh:
+the BNs take the global batch's statistics (``parallel.sync_batch_stats``),
+and after the backward one flat all-reduce averages the gradients and the
+metrics over the ranks (``parallel.all_reduce_mean_``), so every rank takes
+the global step and reports the global metrics.  An explicit all-reduce
+and not ``DistributedDataParallel``: the supernet leaves a different set of
+parameters unused at each sampled arch, which DDP's hooks would have to
+find every step (``find_unused_parameters``) before the zero fill above
+could run, and the model stays unwrapped, so checkpoints keep their
+names.  The collective does not overlap the backward; it moves one copy of
+the gradients a step (Auto-S: 2,731,240 fp32 values).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.inference import normalize_images
 from ..core.losses import LossConfig, distill_loss, multi_loss
+from ..parallel.mesh import all_reduce_mean_, world
 from .checkpoint import TrainState
 
 
@@ -161,13 +175,19 @@ class StepFns:
                 metrics["distill"] = t_loss
                 metrics["total"] = loss
             loss.backward()
-            for group in opt.param_groups:  # JAX's zero gradient for an unused leaf
-                for p in group["params"]:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
+            params = [p for group in opt.param_groups for p in group["params"]]
+            for p in params:  # JAX's zero gradient for an unused leaf
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if world().size > 1:  # the global batch's gradient and metrics
+                names = list(metrics)
+                values = torch.stack([metrics[k] for k in names])
+                all_reduce_mean_([p.grad for p in params] + [values])
+                metrics = dict(zip(names, values.unbind()))
             opt.step()
             ts.scheduler.step()
-            return ts._replace(step=ts.step + 1), {k: v.detach() for k, v in metrics.items()}
+            return ts._replace(step=ts.step + 1), metrics
 
         return step
 
@@ -202,7 +222,10 @@ def train_epoch(step_fns: StepFns, ts: TrainState, batches, epoch: int, logger=N
     Per step, from ``np.random.default_rng((seed, epoch))`` in the JAX
     loop's order: an input size when ``elastic_sizes`` is set, then
     ``arch_sampler(rng)`` when set (the supernet's desc, passed to the
-    step), so one seed gives both packages the same (size, arch) sequence."""
+    step), so one seed gives both packages, and every rank of a process
+    group, the same (size, arch) sequence.  Under a group the steps'
+    metrics are already averaged over the ranks, so every rank reports
+    the global batch's, as JAX does."""
     meters: Dict[str, AverageMeter] = {}
     rng = np.random.default_rng((seed, epoch))
     t0 = time.time()

@@ -214,6 +214,22 @@ for fam, path in zip(FAMILIES, ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yam
     assert [tuple(o.shape) for o in outs] == [(1, 28, 16, 16), (1, 14, 32, 32)], fam
     assert convert.family_entries(net) and convert.to_jax(net)[0]
 assert nms_topk(torch.rand(1, 2, 16, 16), 4, _gather="sum")[1].shape == (1, 2, 4)
+# data parallelism: the mesh engine on two host replicas, a process group
+# of one rank, the synced BN statistics
+import tempfile
+import litepose_tpu_torch.parallel
+from litepose_tpu_torch.parallel import (destroy_distributed, init_distributed, make_mesh,
+                                         sync_batch_stats)
+mesh_engine = PoseEngine(model, flags, GroupParams(num_joints=14), engine.config,
+                         mesh=make_mesh(2, "cpu"))
+got = mesh_engine.process_batch_square(images)
+mesh_engine.close()
+chunks = [engine.process_batch_square(images[i:i + 1]) for i in range(2)]
+assert all(np.array_equal(g, np.concatenate([c[j] for c in chunks])) for j, g in enumerate(got))
+with tempfile.TemporaryDirectory() as tmp:
+    init_distributed("cpu", "file://" + tmp + "/rendezvous", 1, 0)
+    assert sync_batch_stats(torch.ones(2, 3, 4, 4), (0, 2, 3))[2] == 32
+    destroy_distributed()
 for name in ("jax", "cv2", "yaml", "PIL"):
     assert name not in sys.modules, name + " imported"
 jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
@@ -233,7 +249,8 @@ def test_port_runs_without_jax():
     baseline families from their configs and K1' (its twin), exports the
     serving program and runs the loaded artifact, draws and writes a
     skeleton as PNG, imports the op library, the summary and the export and
-    demo CLIs, then checks ``sys.modules``."""
+    demo CLIs, serves on a mesh of two host replicas, joins a process group
+    of one rank, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,

@@ -3,7 +3,9 @@
 group_hungarian, refine_argmax}`` is registered, passes
 ``torch.library.opcheck`` (schema, fake implementation, autograd
 registration, tracing), and on the CPU equals its plain twin bit for bit;
-the same ``opcheck`` on the card is marked ``cuda``.
+the same ``opcheck`` on the card is marked ``cuda``, and so is a launch on
+``cuda:1`` tensors from a thread whose current device is ``cuda:0`` (two
+cards; it skips below).
 
 Nothing here imports jax, so ``pytest --noconftest -m cuda`` runs this file
 on the card's host."""
@@ -177,3 +179,27 @@ def test_opcheck_cuda(cuda, index):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: launches on cuda:1 from a thread on cuda:0")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(CASE_IDS)), ids=CASE_IDS)
+def test_launch_on_the_tensors_card(second_card, index):
+    """Inputs on cuda:1 while the thread's current device is cuda:0 (a mesh
+    engine's shard thread before it sets its device): each op launches on
+    cuda:1, leaves the current device alone, and equals its twin."""
+    name, args, twin = _cases(second_card)[index]
+    torch.cuda.set_device(0)
+    got = getattr(torch.ops.litepose, name)(*args)
+    torch.cuda.synchronize(second_card)
+    assert torch.cuda.current_device() == 0
+    want = twin(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.device == second_card and torch.equal(g, w)

@@ -417,7 +417,8 @@ def test_search_cli(transfer_inputs, narrow_port, scoring, tmp_path):
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without a card every new entry point raises, naming the CPU switch,
-    instead of running on the host."""
+    instead of running on the host; ``--multi-host`` without a rendezvous
+    raises too."""
     from litepose_tpu_torch.config import default_config, update_config
     from litepose_tpu_torch.nas import AccuracyPredictor
     from litepose_tpu_torch.tools import calibrate_test, fuse_bn, search, train, weight_transfer
@@ -442,7 +443,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA device"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
+    # --multi-host with no rendezvous raises instead of training alone
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="rendezvous"):
         train.main(["--cfg", SUPER_CFG, "--multi-host", "--device", "cpu"])
 
 

@@ -248,11 +248,15 @@ def test_train_pipeline_over_the_dataset_equals_jax():
     assert masked >= 2
 
 
-def test_cli_refusals(arch_json, tmp_path):
+def test_cli_refusals(arch_json, tmp_path, monkeypatch):
     from litepose_tpu_torch.tools.valid import main
 
-    with pytest.raises(NotImplementedError, match="M11"):
-        main(_args(arch_json, str(tmp_path), "--device", "cpu", "--devices", "2"))
+    # --devices asks for more cards than are visible
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="only 1 visible"):
+            main(_args(arch_json, str(tmp_path), "--devices", "2"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(_args(arch_json, str(tmp_path)))
