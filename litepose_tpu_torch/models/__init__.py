@@ -1,5 +1,5 @@
-"""LitePose and the baseline families (HigherHRNet, EfficientHRNet,
-LitePose-ResNet) as ``nn.Module``s, their seeded inits, the weight bridges
+"""LitePose, the two NAS supernets and the baseline families (HigherHRNet,
+EfficientHRNet, LitePose-ResNet) as ``nn.Module``s, their seeded inits, the weight bridges
 to and from the JAX pytrees and the reference state dicts, and the
 ``MODEL.NAME`` registry (the counterpart of ``litepose_tpu/models/__init__.py``)."""
 
@@ -9,10 +9,6 @@ from typing import Tuple
 
 import torch
 
-# the families the port does not have yet, with the ROADMAP item that ports them
-_WAITING = {
-    "pose_superresnet": "M9 (the NAS supernet's ResNet search space, with M10)",
-}
 # name -> with_skips of the LitePose it builds
 _LITEPOSE = {"pose_mobilenet": True, "pose_simplenet": False}
 # the baseline families, which need no arch
@@ -20,7 +16,7 @@ FAMILIES = ("pose_higher_hrnet", "pose_efficient_hrnet", "pose_resnet")
 
 
 def available() -> Tuple[str, ...]:
-    return tuple(sorted([*_LITEPOSE, "pose_supermobilenet", *FAMILIES]))
+    return tuple(sorted([*_LITEPOSE, "pose_supermobilenet", "pose_superresnet", *FAMILIES]))
 
 
 def _family(name: str, cfg, generator: torch.Generator, **model_kw):
@@ -50,12 +46,14 @@ def get_model(name: str, cfg, arch=None, device="cuda", seed: int = 0,
     its raw/skip fusion branches; ``pose_supermobilenet`` is the NAS
     supernet (``models.super_litepose``) of the search space whose deconv
     widths are ``MODEL.EXTRA.NUM_DECONV_FILTERS``, which ignores ``arch``
-    and runs the max arch unless ``forward`` gets another desc.
+    and runs the max arch unless ``forward`` gets another desc;
+    ``pose_superresnet`` is the ResNet space's supernet
+    (``models.litepose_resnet.SuperLitePoseResNet``), likewise from
+    ``MODEL.EXTRA.NUM_DECONV_FILTERS``, ignoring ``arch``.
     ``pose_higher_hrnet``, ``pose_efficient_hrnet`` and ``pose_resnet`` are
     the baseline families (``models.higher_hrnet``, ``efficient_hrnet``,
-    ``litepose_resnet``), built from ``cfg`` alone.  ``pose_superresnet``
-    raises ``NotImplementedError`` naming its ROADMAP item.  After loading
-    weights into a returned model that has ``fold_bn_()``, call it."""
+    ``litepose_resnet``), built from ``cfg`` alone.  After loading weights
+    into a returned model that has ``fold_bn_()``, call it."""
     from .litepose import ModelSpec, init_litepose
 
     if name == "pose_supermobilenet":
@@ -68,12 +66,18 @@ def get_model(name: str, cfg, arch=None, device="cuda", seed: int = 0,
                                     torch.Generator().manual_seed(seed),
                                     compute_dtype=compute_dtype)
         return model.to(device).eval()
+    if name == "pose_superresnet":
+        from .litepose_resnet import init_super_litepose_resnet
+
+        model = init_super_litepose_resnet(ModelSpec.from_config(cfg),
+                                           torch.Generator().manual_seed(seed),
+                                           cfg.MODEL.EXTRA.NUM_DECONV_FILTERS,
+                                           compute_dtype=compute_dtype, out_dtype=out_dtype)
+        return model.to(device).eval()
     if name in FAMILIES:
         model = _family(name, cfg, torch.Generator().manual_seed(seed),
                         compute_dtype=compute_dtype, out_dtype=out_dtype)
         return model.to(device).eval()
-    if name in _WAITING:
-        raise NotImplementedError(f"model {name!r} is not ported yet: ROADMAP {_WAITING[name]}")
     if name not in _LITEPOSE:
         raise KeyError(f"unknown model {name!r}; available: {list(available())}")
     if arch is None:

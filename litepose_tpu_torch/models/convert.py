@@ -13,7 +13,8 @@ block's ``lin5`` / ``lin3`` (``nn.Linear``, whose ``weight`` is the JAX
 ``w`` as it is: both compute ``W @ flat + b``).
 
 The baseline families' tables (``hrnet_entries``, ``efficient_hrnet_entries``,
-``litepose_resnet_entries``) are read off a built model; their rows of kind
+``litepose_resnet_entries``) and the ResNet-space supernet's
+(``super_resnet_entries``) are read off a built model; their rows of kind
 ``NONE`` stand for the None slots of the JAX lists (HRNet transitions that
 pass a branch on, the diagonal of the fuse layers), which the pytrees keep.
 """
@@ -352,6 +353,24 @@ def litepose_resnet_entries(model) -> List[Tuple[str, str, Path, str]]:
     t = _Rows()
     t.seq("first.0", ("first", "cbr0"))
     t.seq("first.1", ("first", "cbr1"))
+    _resnet_body(t, model)
+    return t
+
+
+def super_resnet_entries(model) -> List[Tuple[str, str, Path, str]]:
+    """The table of a ``SuperLitePoseResNet`` (pytree of
+    ``init_super_litepose_resnet``: the stem's second conv and its BN are
+    ``conv1`` / ``bn1``, not a conv-BN pair)."""
+    t = _Rows()
+    t.seq("first.0", ("first", "cbr0"))
+    t.weight("first.1.weight", ("first", "conv1", "w"))
+    t.bn("first.2", ("first", "bn1"))
+    _resnet_body(t, model)
+    return t
+
+
+def _resnet_body(t: _Rows, model) -> None:
+    """The FusedMBConv stages and the UpConv head of either ResNet-space model."""
     for si, blocks in enumerate(model.stage):
         for bi in range(len(blocks)):
             t.seq(f"stage.{si}.{bi}.inv", ("stage", si, bi, "inv"))
@@ -363,25 +382,26 @@ def litepose_resnet_entries(model) -> List[Tuple[str, str, Path, str]]:
     for i in range(len(model.final_refined)):
         t.biased(f"final_refined.{i}", ("final_refined", i))
         t.biased(f"final_raw.{i}", ("final_raw", i))
-    return t
 
 
 def family_entries(model) -> List[Tuple[str, str, Path, str]]:
-    """The table of a baseline-family model, by its class."""
+    """The table of a baseline-family model or of the ResNet-space
+    supernet, by its class."""
     from .efficient_hrnet import EfficientHRNet
     from .higher_hrnet import HigherHRNet
-    from .litepose_resnet import LitePoseResNet
+    from .litepose_resnet import LitePoseResNet, SuperLitePoseResNet
 
     for cls, fn in ((HigherHRNet, hrnet_entries), (EfficientHRNet, efficient_hrnet_entries),
-                    (LitePoseResNet, litepose_resnet_entries)):
+                    (LitePoseResNet, litepose_resnet_entries),
+                    (SuperLitePoseResNet, super_resnet_entries)):
         if isinstance(model, cls):
             return fn(model)
     raise TypeError(f"no family table for {type(model).__name__}")
 
 
 def family_state_dict_from_jax(model, params, state) -> Dict[str, torch.Tensor]:
-    """JAX (params, state) pytrees of a baseline family -> the state dict
-    of ``model`` (a model of the same spec)."""
+    """JAX (params, state) pytrees of a baseline family (or the
+    super-ResNet) -> the state dict of ``model`` (a model of the same spec)."""
     trees = {"params": params, "state": state}
     sd = {}
     for name, which, path, kind in family_entries(model):
@@ -428,4 +448,13 @@ def litepose_resnet_from_jax(params, state, spec: ModelSpec,
     return _loaded(LitePoseResNet(spec, deconv_filters, **model_kw), params, state)
 
 
-hrnet_to_jax = efficient_hrnet_to_jax = litepose_resnet_to_jax = to_jax
+def super_resnet_from_jax(params, state, spec: ModelSpec,
+                          deconv_filters: Sequence[int] = (64, 48, 32), **model_kw):
+    """A ``SuperLitePoseResNet`` in eval mode holding JAX
+    ``super_litepose_resnet`` weights."""
+    from .litepose_resnet import SuperLitePoseResNet
+
+    return _loaded(SuperLitePoseResNet(spec, deconv_filters, **model_kw), params, state)
+
+
+hrnet_to_jax = efficient_hrnet_to_jax = litepose_resnet_to_jax = super_resnet_to_jax = to_jax

@@ -7,13 +7,18 @@
   torchrun --nproc_per_node=N -m litepose_tpu_torch.tools.train --multi-host --cfg ... [KEY VALUE ...]
 
 The arch: ``--superconfig`` (at ``DATASET.INPUT_SIZE``), else the max arch
-for the supernet ``pose_supermobilenet``, else ``fixed_sample(ratio=1.0)``.
-The model is the registry's (``models.get_model``, seed ``SEED``, compute
-type ``TPU.COMPUTE_DTYPE``), its stem and backbone loaded from
+for a supernet (``pose_supermobilenet``, ``pose_superresnet``), else
+``fixed_sample(ratio=1.0)``; the ResNet-space models (``pose_superresnet``,
+``pose_resnet``) ignore it.  The model is the registry's
+(``models.get_model``, seed ``SEED``, compute type ``TPU.COMPUTE_DTYPE``);
+a LitePose-family model's stem and backbone are loaded from
 ``MODEL.PRETRAINED`` when ``MODEL.INIT_WEIGHTS`` is set and the file exists;
 ``PoseDataset`` + ``TrainPipeline`` feed it.  A supernet trains with
-elastic input sizes and a sampled arch per step, both drawn from
-``np.random.default_rng((SEED, epoch))`` in the JAX order.  The run
+elastic input sizes and a sampled desc per step, both drawn from
+``np.random.default_rng((SEED, epoch))`` in the JAX order and, for both
+supernets as in the JAX CLI, from the MobileNet space's ``ArchManager``
+(the ResNet space has the same stem and stage widths, so each desc is one
+of its own).  The run
 directory ``OUTPUT_DIR/<dataset>/<model>/<cfg name>`` gets the log,
 ``checkpoint.msgpack`` every ``--save-freq`` epochs (auto-resumed when
 ``AUTO_RESUME``) and ``final_state.msgpack``; both packages read them.
@@ -34,9 +39,9 @@ log file.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
 second epoch on rank 0 (the first is warm-up).
 
 ``--device cuda`` (the default) raises without a card; ``--device cpu``
-trains on the host.  The baseline families (``pose_higher_hrnet``,
-``pose_efficient_hrnet``, ``pose_resnet``) and ``pose_superresnet`` raise
-``NotImplementedError``: their training is not held to JAX's yet (ROADMAP M10).
+trains on the host.  ``pose_higher_hrnet`` and ``pose_efficient_hrnet``
+raise ``NotImplementedError``: their training is not held to JAX's yet
+(ROADMAP M10).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 _LITEPOSE_FAMILY = ("pose_mobilenet", "pose_simplenet", "pose_supermobilenet")
+_NOT_TRAINED = ("pose_higher_hrnet", "pose_efficient_hrnet")
 
 
 class TrainRun(NamedTuple):
@@ -136,7 +142,7 @@ def _train(args: argparse.Namespace, device: torch.device) -> TrainRun:
     from ..config import check_config, default_config, update_config
     from ..core.losses import LossConfig
     from ..data.dataset import PipelineConfig, PoseDataset, TrainPipeline, make_batch_iterator
-    from ..models import FAMILIES, get_model
+    from ..models import get_model
     from ..models.super_litepose import arch_to_mask_desc
     from ..parallel import barrier, world
     from ..train import optim
@@ -149,9 +155,9 @@ def _train(args: argparse.Namespace, device: torch.device) -> TrainRun:
     cfg = default_config()
     update_config(cfg, args.cfg, args.opts)
     check_config(cfg)
-    if cfg.MODEL.NAME in FAMILIES or cfg.MODEL.NAME == "pose_superresnet":
+    if cfg.MODEL.NAME in _NOT_TRAINED:
         raise NotImplementedError(f"training {cfg.MODEL.NAME} is not ported yet: ROADMAP M10 "
-                                  f"(the baseline families train once their steps are held "
+                                  f"(the HRNet families train once their steps are held "
                                   f"to JAX's)")
     rank, n_ranks, backend = world()
     out_dir, tb_dir = create_run_dirs(cfg, args.cfg)
@@ -161,7 +167,7 @@ def _train(args: argparse.Namespace, device: torch.device) -> TrainRun:
                 + (f" ({backend})" if backend else ""))
 
     manager = ArchManager(deconv_setting=cfg.MODEL.EXTRA.NUM_DECONV_FILTERS, seed=cfg.SEED)
-    is_supernet = cfg.MODEL.NAME == "pose_supermobilenet"
+    is_supernet = cfg.MODEL.NAME in ("pose_supermobilenet", "pose_superresnet")
     if args.superconfig:
         arch = load_arch(args.superconfig).with_img_size(cfg.DATASET.INPUT_SIZE)
     elif is_supernet:

@@ -80,14 +80,23 @@ def build_model(cfg, arch, device):
     as in the JAX CLI), with ``TEST.MODEL_FILE``'s weights when set (else
     the seeded init), in eval mode with its BNs folded where it folds them,
     on ``device``.  A ``.pth`` / ``.tar`` goes to the family's reference
-    loader, a ``.msgpack`` to ``train.checkpoint.load_params``."""
+    loader, a ``.msgpack`` to ``train.checkpoint.load_params``.  A
+    ``pose_superresnet`` config with a ``.msgpack`` raises ``ValueError``:
+    its weights are the ResNet-space supernet's, which no LitePose holds
+    (the JAX CLI fails on them too, in ``load_params``)."""
     from ..models import FAMILIES, get_model
     from ..models.convert import family_state_dict_from_jax, state_dict_from_jax
     from ..models.litepose import ModelSpec
 
+    path = cfg.TEST.MODEL_FILE
+    if cfg.MODEL.NAME == "pose_superresnet" and path and not path.endswith((".pth", ".tar")):
+        raise ValueError(f"{path}: a pose_superresnet checkpoint holds the ResNet-space "
+                         f"supernet, and the eval CLI evaluates 'super' models as "
+                         f"pose_mobilenet at an arch (as the JAX CLI does, which cannot load "
+                         f"it either); serve it through PoseEngine over "
+                         f"SuperLitePoseResNet(x, desc) instead")
     name = "pose_mobilenet" if "super" in cfg.MODEL.NAME else cfg.MODEL.NAME
     model = get_model(name, cfg, arch, device="cpu", compute_dtype=compute_dtype(cfg))
-    path = cfg.TEST.MODEL_FILE
     if path:
         if path.endswith((".pth", ".tar")):
             from ..models import torch_convert as tc

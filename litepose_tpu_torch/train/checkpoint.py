@@ -20,9 +20,12 @@ The writer emits the same subset, with map keys sorted as flax's
 tree.
 
 Parameters and BN statistics take the JAX pytree layout
-(``models.convert``) of the model, a ``LitePose`` or the NAS supernet
-``SuperLitePose`` (whose layout adds each block's ``lin5`` / ``lin3``);
-the optimizer state takes optax's layout, each
+(``models.convert``) of the model, chosen by its class: a ``LitePose``,
+the NAS supernet ``SuperLitePose`` (whose layout adds each block's
+``lin5`` / ``lin3``), the ResNet-space supernet ``SuperLitePoseResNet`` or
+a baseline family (HigherHRNet, EfficientHRNet, LitePose-ResNet); any
+other class raises ``TypeError``.  The optimizer state takes optax's
+layout, each
 moment in its parameter's pytree layout:
 
 * adam: ``{"0": {"count", "mu", "nu"}, "1": {"count"}}``
@@ -44,6 +47,8 @@ import torch
 from ..models.convert import (entries, family_entries, family_state_dict_from_jax,
                               named_from_tree, super_entries, super_state_dict_from_jax,
                               state_dict_from_jax, tree_from_named)
+from ..models.litepose import LitePose
+from ..models.super_litepose import SuperLitePose
 from .optim import set_schedule_step
 
 EXT_NDARRAY = 1
@@ -290,16 +295,14 @@ def init_train_state(model, optimizer, scheduler, step: int = 0, epoch: int = 0,
     return TrainState(model, optimizer, scheduler, int(step), int(epoch), float(best_perf))
 
 
-def _is_supernet(model) -> bool:
-    return hasattr(model, "dims")
-
-
 def _tables(model):
-    if _is_supernet(model):
+    """The (name, pytree, path, kind) table of ``model``'s JAX layout, by its
+    class; a class with no layout raises ``TypeError``."""
+    if isinstance(model, SuperLitePose):
         return super_entries(model.spec, model.dims)
-    if not hasattr(model, "arch"):  # a baseline family (HigherHRNet, ...)
-        return family_entries(model)
-    return entries(model.spec, model.arch, model.with_skips)
+    if isinstance(model, LitePose):
+        return entries(model.spec, model.arch, model.with_skips)
+    return family_entries(model)  # the families, the super-ResNet; else TypeError
 
 
 def _named_params(ts: TrainState):
@@ -366,15 +369,16 @@ def _model_trees(model):
 
 
 def _load_model_trees(model, params, state) -> None:
-    """Load pytrees into the model; a supernet checkpoint without ``lin5`` /
-    ``lin3`` (a JAX supernet after a backbone pretrain) keeps the model's."""
-    if _is_supernet(model):
+    """Load pytrees into the model; a ``SuperLitePose`` checkpoint without
+    ``lin5`` / ``lin3`` (a JAX supernet after a backbone pretrain) keeps the
+    model's."""
+    if isinstance(model, SuperLitePose):
         sd = super_state_dict_from_jax(params, state, model.spec, model.dims,
                                        keep=model.state_dict())
-    elif not hasattr(model, "arch"):
-        sd = family_state_dict_from_jax(model, params, state)
-    else:
+    elif isinstance(model, LitePose):
         sd = state_dict_from_jax(params, state, model.spec, model.arch, model.with_skips)
+    else:
+        sd = family_state_dict_from_jax(model, params, state)
     model.load_state_dict(sd, strict=True)
     if not model.training and hasattr(model, "fold_bn_"):
         model.fold_bn_()
@@ -425,7 +429,7 @@ def auto_resume(directory: str, template: TrainState) -> TrainState:
 
 
 def save_params(path: str, model) -> None:
-    """Weights-only export of a ``LitePose``, ``SuperLitePose`` or baseline
+    """Weights-only export of a ``LitePose``, either supernet or a baseline
     family model, which both packages' ``load_params`` read."""
     params, state = _model_trees(model)
     _write(path, {"params": params, "model_state": state})
@@ -433,8 +437,7 @@ def save_params(path: str, model) -> None:
 
 def load_model_params(path: str, model) -> None:
     """Load a weights file of either package (``save_params``,
-    ``save_checkpoint``) into ``model``, a ``LitePose`` or ``SuperLitePose``
-    of its layout."""
+    ``save_checkpoint``) into ``model``, a model of its layout."""
     _load_model_trees(model, *load_params(path))
 
 
@@ -450,7 +453,7 @@ def load_pretrained_backbone(model, torch_sd) -> None:
     sd = strip_prefixes(torch_sd)
     if not any("deconv" in k or "final" in k for k in sd):
         raise ValueError("checkpoint has no head keys; expected a full LitePose state_dict")
-    arch = model.dims.max_arch() if _is_supernet(model) else model.arch
+    arch = model.dims.max_arch() if isinstance(model, SuperLitePose) else model.arch
     full = state_dict_from_torch(sd, model.spec, arch)
     own = model.state_dict()
     new = {k: full[k] if k.split(".")[0] in ("first", "stage") and k in full else v

@@ -316,3 +316,36 @@ def test_save_params_loads_in_both_packages(jax_setup, tmp_path):
     jp, js = jck.load_params(path, tp, tstate)
     _assert_trees_equal(jax.tree.map(np.asarray, jp), p)
     _assert_trees_equal(jax.tree.map(np.asarray, js), s)
+
+
+@pytest.mark.parametrize("looks_like", ["supernet", "litepose", "nothing"])
+def test_layout_follows_the_model_class(tmp_path, looks_like):
+    """The JAX layout is chosen by the model's class: a module of another
+    class raises ``TypeError`` in every entry point, even one that carries
+    a supernet's ``dims`` / ``spec`` or a LitePose's ``arch``, instead of
+    taking another model's table."""
+    from litepose_tpu_torch.models.super_litepose import SuperDims
+
+    class Other(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 4, 3)
+            self.spec = ModelSpec()
+            if looks_like == "supernet":
+                self.dims = SuperDims(24, (32, 64, 96, 160), (1, 1, 1, 1), (2, 2, 2, 1),
+                                      (64, 48, 32))
+            elif looks_like == "litepose":
+                self.arch, self.with_skips = _port_arch(), True
+
+    model = Other()
+    opt, sched = optim.make_optimizer("sgd", model.parameters(),
+                                      optim.multistep_lr(0.1, [100], 0.1, 10))
+    ts = tck.init_train_state(model, opt, sched)
+    calls = [lambda: tck.save_params(str(tmp_path / "w.msgpack"), model),
+             lambda: tck.save_checkpoint(str(tmp_path), ts),
+             lambda: tck.opt_state_tree(ts),
+             lambda: tck.load_model_params(str(tmp_path / "missing.msgpack"), model)]
+    tck._write(str(tmp_path / "missing.msgpack"), {"params": {}, "model_state": {}})
+    for call in calls:
+        with pytest.raises(TypeError, match="Other"):
+            call()

@@ -200,10 +200,10 @@ def test_arch_manager_random_sample_equals_jax():
 
 
 def test_registry_builds_litepose_and_names_what_waits():
-    """LitePose, its supernet and the three baseline families of the
-    shipped configs build (the families at the JAX registry's stage output
-    shapes, from ``jax.eval_shape``); ``pose_superresnet`` still names its
-    ROADMAP item."""
+    """LitePose, its supernet, the ResNet-space supernet and the three
+    baseline families of the shipped configs build (the families and the
+    super-ResNet at the JAX registry's stage output shapes, from
+    ``jax.eval_shape``); an unknown name raises."""
     import jax
     import litepose_tpu.models as jmodels
     import torch
@@ -225,9 +225,11 @@ def test_registry_builds_litepose_and_names_what_waits():
     supernet = get_model("pose_supermobilenet", cfg, arch, device="cpu")
     assert not supernet.training and supernet.dims.deconv == (64, 48, 32)
     assert supernet.max_desc.tolist() == [24, 32, 64, 96, 160, 64, 48, 32]
-    for name, path in zip(FAMILIES, ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
-                                     "crowd_pose/efficient_hrnet/H-3.yaml",
-                                     "crowd_pose/resnet/resnet.yaml")):
+    for name, path in zip(FAMILIES + ("pose_superresnet",),
+                          ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
+                           "crowd_pose/efficient_hrnet/H-3.yaml",
+                           "crowd_pose/resnet/resnet.yaml",
+                           "crowd_pose/resnet/superresnet.yaml")):
         path = os.path.join(REPO, "configs", path)
         family = get_model(name, update_config(default_config(), path), device="cpu")
         assert not family.training and family.compute_dtype == torch.bfloat16
@@ -240,8 +242,14 @@ def test_registry_builds_litepose_and_names_what_waits():
         assert [tuple(o.shape) for o in outs] == [(w.shape[0], w.shape[3], w.shape[1],
                                                     w.shape[2]) for w in want], name
         assert all(o.dtype == torch.float32 for o in outs)
-    for name, item in (("pose_superresnet", "M9"),):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(name, cfg, arch, device="cpu")
+    from litepose_tpu_torch.models import available
+    from litepose_tpu_torch.models.litepose_resnet import SuperLitePoseResNet
+
+    superresnet = get_model("pose_superresnet", update_config(default_config(), path), arch,
+                            device="cpu")
+    assert isinstance(superresnet, SuperLitePoseResNet) and superresnet.deconv_filters == (
+        64, 48, 32)
+    assert superresnet.max_desc.tolist() == [24, 32, 64, 96, 160, 64, 48, 32]
+    assert available() == tuple(sorted(jmodels.available()))
     with pytest.raises(KeyError):
         get_model("pose_unknown", cfg, arch, device="cpu")

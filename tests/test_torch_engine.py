@@ -205,9 +205,10 @@ import litepose_tpu_torch.models.convert as convert
 import litepose_tpu_torch.models.torch_convert as torch_convert
 from litepose_tpu_torch.models import FAMILIES, get_model
 from litepose_tpu_torch.ops.topk import nms_topk
-for fam, path in zip(FAMILIES, ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
-                                "crowd_pose/efficient_hrnet/H-3.yaml",
-                                "crowd_pose/resnet/resnet.yaml")):
+for fam, path in zip(FAMILIES + ("pose_superresnet",),
+                     ("crowd_pose/higher_hrnet/w32_512_adam_lr1e-3.yaml",
+                      "crowd_pose/efficient_hrnet/H-3.yaml", "crowd_pose/resnet/resnet.yaml",
+                      "crowd_pose/resnet/superresnet.yaml")):
     net = get_model(fam, update_config(default_config(), "configs/" + path), device="cpu")
     with torch.no_grad():
         outs = net(torch.zeros(1, 3, 64, 64))
@@ -246,11 +247,11 @@ def test_port_runs_without_jax():
     imports the eval CLI's modules and the NAS pipeline's (the train,
     search, weight-transfer, BN-fusion, arch and calibration CLIs), runs the
     supernet at a sampled arch and extracts it, builds and runs the three
-    baseline families from their configs and K1' (its twin), exports the
-    serving program and runs the loaded artifact, draws and writes a
-    skeleton as PNG, imports the op library, the summary and the export and
-    demo CLIs, serves on a mesh of two host replicas, joins a process group
-    of one rank, then checks ``sys.modules``."""
+    baseline families and the super-ResNet from their configs and K1' (its
+    twin), exports the serving program and runs the loaded artifact, draws
+    and writes a skeleton as PNG, imports the op library, the summary and
+    the export and demo CLIs, serves on a mesh of two host replicas, joins a
+    process group of one rank, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,

@@ -8,8 +8,11 @@ clash under xdist), one torch thread each, each run bounded by a timeout.
 * One SGD step of two ranks, each on its half of the batch of
   tests/test_torch_train.py (the two-block 64-px arch, batch 4), against
   JAX's ``StepFns`` step on ``make_mesh(2)`` with the batch sharded over
-  the mesh, for LitePose and for the narrow supernet at a sampled arch
-  (tests/test_torch_supernet.py), fp32 (JAX under ``Policy.exact()``), at
+  the mesh, for LitePose, for the narrow supernet at a sampled arch
+  (tests/test_torch_supernet.py) and for the super-ResNet at its published
+  widths at a sampled desc (tests/test_torch_super_resnet.py; its
+  comparison with one rank in float64, see
+  ``test_two_rank_step_matches_one_rank``), fp32 (JAX under ``Policy.exact()``), at
   tests/test_torch_train.py's tolerances: rtol 1e-5 on the loss and the
   metrics, atol 2e-4 on the BN statistics, atol 1e-5 on the parameters;
   and against the port's one-process step on the whole batch at the same
@@ -38,10 +41,12 @@ from test_torch_supernet import assert_heads_aside, jax_side, jax_supernet  # no
 from test_torch_supernet import port_supernet
 from test_torch_train import _batch, _port_arch, _port_model, jax_weights  # noqa: F401
 from test_torch_train_cli import port_manager_sample
+from test_torch_super_resnet import jspec as res_jspec, port_model, trees  # noqa: F401
 
 from litepose_tpu_torch.arch import ArchManager
 from litepose_tpu_torch.core.losses import LossConfig
-from litepose_tpu_torch.models.convert import jax_from_state_dict, supernet_to_jax
+from litepose_tpu_torch.models.convert import (jax_from_state_dict, super_resnet_to_jax,
+                                               supernet_to_jax)
 from litepose_tpu_torch.models.litepose import ModelSpec
 from litepose_tpu_torch.models.super_litepose import arch_to_mask_desc
 from litepose_tpu_torch.parallel import init_distributed, destroy_distributed, sync_batch_stats
@@ -202,12 +207,36 @@ def _supernet_desc():
     return arch_to_mask_desc(port_manager_sample(5))
 
 
+def _super_resnet_desc():
+    """A desc of the ResNet space drawn from a seeded rng."""
+    from litepose_tpu_torch.models.litepose_resnet import resnet_arch_manager
+
+    return arch_to_mask_desc(resnet_arch_manager().random_sample(np.random.default_rng(6)))
+
+
 @pytest.fixture(scope="module")
-def models(jax_weights, jax_supernet):  # noqa: F811
-    """{"litepose" | "supernet": (a factory of the fresh training model, desc)}."""
+def models(jax_weights, jax_supernet, trees):  # noqa: F811
+    """{"litepose" | "supernet" | "superresnet": (a factory of the fresh
+    training model, desc)}; the super-ResNet at its published widths
+    (tests/test_torch_super_resnet.py)."""
     (params, state), _ = jax_weights
     return {"litepose": (lambda: _port_model(params, state), None),
-            "supernet": (lambda: port_supernet(jax_supernet).train(), _supernet_desc())}
+            "supernet": (lambda: port_supernet(jax_supernet).train(), _supernet_desc()),
+            "superresnet": (lambda: port_model(trees).train(), _super_resnet_desc()),
+            "superresnet_f64": (lambda: port_model(trees, torch.float64).train(),
+                                _super_resnet_desc())}
+
+
+def _batch_f64():
+    """``_batch()`` with float64 targets and masks (the step then runs in
+    float64 throughout)."""
+    batch = _batch()
+    return {k: [np.asarray(x, np.float64) for x in v] if k in ("heatmaps", "masks") else v
+            for k, v in batch.items()}
+
+
+def _batch_of(name):
+    return _batch_f64() if name.endswith("_f64") else _batch()
 
 
 @pytest.fixture(scope="module")
@@ -216,13 +245,13 @@ def two_rank_steps(models, tmp_path_factory):
     out = {}
     for name, (make, desc) in models.items():
         tmp = tmp_path_factory.mktemp(f"step_{name}")
-        out[name] = run_ranks(tmp, {"kind": "step", "model": make(), "batch": _batch(),
+        out[name] = run_ranks(tmp, {"kind": "step", "model": make(), "batch": _batch_of(name),
                                     "desc": desc})
     return out
 
 
 @pytest.fixture(scope="module")
-def jax_mesh_steps(jax_weights, jax_supernet):  # noqa: F811
+def jax_mesh_steps(jax_weights, jax_supernet, trees):  # noqa: F811
     """{name: JAX's step on make_mesh(2): (metrics, new state, new params)}."""
     import jax
     import jax.numpy as jnp
@@ -255,10 +284,18 @@ def jax_mesh_steps(jax_weights, jax_supernet):  # noqa: F811
         return apply_super_litepose(p, s, x, desc, jspec, jd, train=True,
                                     policy=Policy.exact())
 
+    def sup_res(p, s, x, desc):
+        from litepose_tpu.models.litepose_resnet import apply_super_litepose_resnet
+
+        return apply_super_litepose_resnet(p, s, x, desc, res_jspec(), train=True,
+                                           policy=Policy.exact())
+
     desc = jdesc(JArch.from_dict(port_manager_sample(5).to_dict()), jm)
+    res_desc = jnp.asarray(_super_resnet_desc().numpy(), jnp.int32)
     out = {}
     for name, apply_fn, (params, state), extra in (
-            ("litepose", lite, jax_weights[0], ()), ("supernet", sup, jax_supernet, (desc,))):
+            ("litepose", lite, jax_weights[0], ()), ("supernet", sup, jax_supernet, (desc,)),
+            ("superresnet", sup_res, trees, (res_desc,))):
         sfns = JStepFns(apply_fn, JLoss(num_joints=14), tx, base_input_size=IMG,
                         base_output_sizes=OUT)
         ts = jinit_ts(shard_pytree(jax.tree.map(jnp.asarray, params), rspec),
@@ -275,7 +312,7 @@ def _assert_metrics(got, want):
         np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["litepose", "supernet"])
+@pytest.mark.parametrize("name", ["litepose", "supernet", "superresnet"])
 def test_two_rank_step_matches_jax_mesh(name, models, two_rank_steps, jax_mesh_steps):
     """Two gloo ranks, each on half the batch, take JAX's mesh step."""
     make, _ = models[name]
@@ -284,8 +321,9 @@ def test_two_rank_step_matches_jax_mesh(name, models, two_rank_steps, jax_mesh_s
     _assert_metrics(result["metrics"], want_metrics)
     model = make()
     model.load_state_dict(result["state"])
-    if name == "litepose":
-        params, state = jax_from_state_dict(model.state_dict(), ModelSpec(), _port_arch())
+    if name != "supernet":
+        params, state = jax_from_state_dict(model.state_dict(), ModelSpec(), _port_arch()) \
+            if name == "litepose" else super_resnet_to_jax(model)
         for got, want, atol in ((state, want_state, 2e-4), (params, want_params, 1e-5)):
             import jax
 
@@ -300,17 +338,22 @@ def test_two_rank_step_matches_jax_mesh(name, models, two_rank_steps, jax_mesh_s
         assert_heads_aside(params, want_params, arch, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["litepose", "supernet"])
+@pytest.mark.parametrize("name", ["litepose", "supernet", "superresnet_f64"])
 def test_two_rank_step_matches_one_rank(name, models, two_rank_steps):
     """The same step in one process on the whole batch; the two ranks end
-    bit-equal."""
+    bit-equal.  The super-ResNet's steps run in float64: at its published
+    depth, on this batch, its fp32 step is ill-conditioned at the stem
+    (the masked BN after ``first.1``), where one fp32 process lies up to
+    9e-4 from the float64 step on ``first.1.weight`` (at the max desc; 2e-4
+    at this one) and two ranks 1e-7, by chance of the summation order; in
+    float64 the two equal the one to the same atol."""
     make, desc = models[name]
     ranks = two_rank_steps[name]
     for k, v in ranks[0]["state"].items():
         assert torch.equal(v, ranks[1]["state"][k]), k
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
     model = make()
-    metrics = port_step(model, _batch(), desc)
+    metrics = port_step(model, _batch_of(name), desc)
     _assert_metrics(ranks[0]["metrics"], metrics)
     for k, w in model.state_dict().items():
         g = ranks[0]["state"][k]

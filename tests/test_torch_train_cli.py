@@ -286,12 +286,11 @@ def test_train_cli_fixed_litepose(tmp_path):
 
 
 @pytest.mark.parametrize("cfg", ["higher_hrnet/w32_512_adam_lr1e-3.yaml",
-                                 "efficient_hrnet/H-3.yaml", "resnet/resnet.yaml",
-                                 "resnet/superresnet.yaml"])
+                                 "efficient_hrnet/H-3.yaml"])
 def test_train_cli_refuses_the_families(cfg, tmp_path):
-    """The baseline families (and the super-ResNet) do not train until
-    their steps are held to JAX's: the CLI raises naming ROADMAP M10
-    before it writes a run directory."""
+    """The HRNet families do not train until their steps are held to
+    JAX's: the CLI raises naming ROADMAP M10 before it writes a run
+    directory (the ResNet space trains: tests/test_torch_resnet_train_cli.py)."""
     from litepose_tpu_torch.tools import train
 
     out = tmp_path / "output"
