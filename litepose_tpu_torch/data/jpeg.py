@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Iterator, Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 
@@ -135,14 +135,16 @@ def jpeg_size(src: Source) -> Tuple[int, int]:
     return (w, h) if exif_orientation(data) >= 5 else (h, w)
 
 
-def decode_jpeg(src: Source) -> np.ndarray:
+def decode_jpeg(src: Source, name: Optional[str] = None) -> np.ndarray:
     """A JPEG file (a path, or its bytes) -> (H, W, 3) uint8 RGB, equal to
     cv2's ``imread(IMREAD_COLOR)`` turned to RGB.  Raises ``ValueError``,
-    naming the file and the kind, for a JPEG it does not decode.  The host
-    library builds at first use (``kernels.build.load_host``)."""
+    naming the file (or ``name``, for bytes) and the kind, for a JPEG it
+    does not decode.  The host library builds at first use
+    (``kernels.build.load_host``)."""
     from ..kernels import build
 
-    data, name = _read(src)
+    data, read_name = _read(src)
+    name = name or read_name
     marker, precision, h, w, nc = _frame(data, name)
     if marker in _FRAME_KINDS:
         raise ValueError(f"{name}: {_FRAME_KINDS[marker]} JPEG is not supported "

@@ -4,14 +4,15 @@ Counterpart of ``litepose_tpu/ops/runtime.py`` (which picks the Pallas
 execution mode): here the choice is made by the tensor's device in each
 wrapper, and this module only turns ``csrc/*.cu`` into one shared library
 with a plain C interface.  It also builds the host library (the JPEG
-decoder ``csrc/jpeg_decode.cpp`` and the polygon fill ``csrc/poly_fill.cpp``)
-with the host C++ compiler: ``load_host()``.
+decoder ``csrc/jpeg_decode.cpp``, the polygon fill ``csrc/poly_fill.cpp``
+and the host decoder ``csrc/fast_group.cpp``) with the host C++ compiler:
+``load_host()``.
 
 The libraries land in ``kernels/_build/<hash>/`` (listed in ``.gitignore``),
 keyed by a hash of the sources and flags, so an edited source never loads a
 stale build.  Nothing is built or loaded at import time: ``load()`` runs the
 first time a wrapper sees a CUDA tensor, ``load_host()`` the first time an
-image is decoded or a polygon filled.
+image is decoded, a polygon filled or maps decoded on the host.
 """
 
 from __future__ import annotations
@@ -73,9 +74,10 @@ _SIGNATURES = {
 }
 
 
-# the host library, the JPEG decoder and the polygon fill: integer
-# arithmetic only (clipping aside), and never -ffast-math
-HOST_SOURCES = ("jpeg_decode.cpp", "poly_fill.cpp")
+# the host library, the JPEG decoder and the polygon fill (integer
+# arithmetic only, clipping aside) and the host decoder; never -ffast-math,
+# and no -march=native, which lets the compiler contract a*b + c into an FMA
+HOST_SOURCES = ("jpeg_decode.cpp", "poly_fill.cpp", "fast_group.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
 HOST_LIB_NAME = "liblitepose_host.so"
 _HOST_SIGNATURES = {
@@ -174,7 +176,7 @@ def build_host() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
     if not cxx:
-        raise RuntimeError("no host C++ compiler (c++ or $CXX): the JPEG decoder "
+        raise RuntimeError("no host C++ compiler (c++ or $CXX): the host library "
                            "cannot be built")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)

@@ -181,8 +181,9 @@ class ConvBNSwish(nn.Sequential):
 
 class SqueezeExcitation(nn.Module):
     """``se``: ``Sequential(AdaptiveAvgPool2d, conv 1x1 (bias), Swish, conv
-    1x1 (bias), Sigmoid)``; the mean in fp32, the rest in the activation
-    dtype, as the JAX block."""
+    1x1 (bias), Sigmoid)``; the mean in fp32 (float64 for a float64
+    activation, which the JAX block, whose parity runs are fp32, never
+    sees), the rest in the activation dtype, as the JAX block."""
 
     def __init__(self, hidden: int, reduced: int):
         super().__init__()
@@ -195,7 +196,7 @@ class SqueezeExcitation(nn.Module):
         return x @ w.t() + conv.bias.to(x.dtype)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        se = y.float().mean(dim=(2, 3)).to(y.dtype)
+        se = y.to(torch.promote_types(y.dtype, torch.float32)).mean(dim=(2, 3)).to(y.dtype)
         se = swish(self._linear(se, self.se[1]))
         se = self._linear(se, self.se[3])
         return y * torch.sigmoid(se)[:, :, None, None]

@@ -9,12 +9,19 @@
 The arch: ``--superconfig`` (at ``DATASET.INPUT_SIZE``), else the max arch
 for a supernet (``pose_supermobilenet``, ``pose_superresnet``), else
 ``fixed_sample(ratio=1.0)``; the ResNet-space models (``pose_superresnet``,
-``pose_resnet``) ignore it.  The model is the registry's
+``pose_resnet``) and the HRNet families (``pose_higher_hrnet``,
+``pose_efficient_hrnet``) ignore it.  The model is the registry's
 (``models.get_model``, seed ``SEED``, compute type ``TPU.COMPUTE_DTYPE``);
 a LitePose-family model's stem and backbone are loaded from
-``MODEL.PRETRAINED`` when ``MODEL.INIT_WEIGHTS`` is set and the file exists;
-``PoseDataset`` + ``TrainPipeline`` feed it.  A supernet trains with
-elastic input sizes and a sampled desc per step, both drawn from
+``MODEL.PRETRAINED`` when ``MODEL.INIT_WEIGHTS`` is set and the file exists
+(no other model loads it, as in the JAX CLI: the HRNet configs' ImageNet
+``hrnet_w32`` file stays unread); ``PoseDataset`` + ``TrainPipeline`` feed
+it.  A config whose ``MODEL.NUM_JOINTS`` differs from
+``DATASET.NUM_JOINTS`` (EfficientHRNet H-1, H-2, H-4) raises
+``ValueError`` before any work: its targets have the dataset's joints and
+its outputs the model's, and the JAX CLI fails at its first step's loss.
+A supernet trains with elastic input sizes and a sampled desc per step,
+both drawn from
 ``np.random.default_rng((SEED, epoch))`` in the JAX order and, for both
 supernets as in the JAX CLI, from the MobileNet space's ``ArchManager``
 (the ResNet space has the same stem and stage widths, so each desc is one
@@ -39,9 +46,7 @@ log file.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
 second epoch on rank 0 (the first is warm-up).
 
 ``--device cuda`` (the default) raises without a card; ``--device cpu``
-trains on the host.  ``pose_higher_hrnet`` and ``pose_efficient_hrnet``
-raise ``NotImplementedError``: their training is not held to JAX's yet
-(ROADMAP M10).
+trains on the host.
 """
 
 from __future__ import annotations
@@ -54,7 +59,6 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 _LITEPOSE_FAMILY = ("pose_mobilenet", "pose_simplenet", "pose_supermobilenet")
-_NOT_TRAINED = ("pose_higher_hrnet", "pose_efficient_hrnet")
 
 
 class TrainRun(NamedTuple):
@@ -67,7 +71,7 @@ class TrainRun(NamedTuple):
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="Train a LitePose-family model (PyTorch port)")
+    p = argparse.ArgumentParser(description="Train a pose model of the registry (PyTorch port)")
     p.add_argument("--cfg", required=True, help="experiment YAML")
     p.add_argument("--superconfig", default=None, help="arch JSON (subnet shape)")
     p.add_argument("--teacher", action="store_true", help="enable distillation")
@@ -155,10 +159,10 @@ def _train(args: argparse.Namespace, device: torch.device) -> TrainRun:
     cfg = default_config()
     update_config(cfg, args.cfg, args.opts)
     check_config(cfg)
-    if cfg.MODEL.NAME in _NOT_TRAINED:
-        raise NotImplementedError(f"training {cfg.MODEL.NAME} is not ported yet: ROADMAP M10 "
-                                  f"(the HRNet families train once their steps are held "
-                                  f"to JAX's)")
+    if cfg.MODEL.NUM_JOINTS != cfg.DATASET.NUM_JOINTS:
+        raise ValueError(f"MODEL.NUM_JOINTS {cfg.MODEL.NUM_JOINTS} != DATASET.NUM_JOINTS "
+                         f"{cfg.DATASET.NUM_JOINTS}: the loss compares the model's planes "
+                         f"with the dataset's targets (the JAX CLI fails at its first step)")
     rank, n_ranks, backend = world()
     out_dir, tb_dir = create_run_dirs(cfg, args.cfg)
     logger = setup_logger(out_dir, rank=rank)

@@ -231,6 +231,18 @@ with tempfile.TemporaryDirectory() as tmp:
     init_distributed("cpu", "file://" + tmp + "/rendezvous", 1, 0)
     assert sync_batch_stats(torch.ones(2, 3, 4, 4), (0, 2, 3))[2] == 32
     destroy_distributed()
+# the host decoder of the demo's --backend native, and a zipped JPEG
+import zipfile
+from litepose_tpu_torch.native import NativeHeatmapParser
+from litepose_tpu_torch.utils import zipreader
+people, _ = NativeHeatmapParser(GroupParams(num_joints=14)).parse(
+    np.zeros((14, 16, 16), np.float32), np.zeros((14, 16, 16, 1), np.float32))
+assert people.shape == (0, 14, 4)
+with tempfile.TemporaryDirectory() as tmp:
+    with zipfile.ZipFile(tmp + "/f.zip", "w") as z:
+        z.write("litepose_tpu_torch/assets/eval_fixture/000000.jpg", "a.jpg")
+    assert zipreader.imread(tmp + "/f.zip@a.jpg").shape == (427, 640, 3)
+    zipreader.close_all()
 for name in ("jax", "cv2", "yaml", "PIL"):
     assert name not in sys.modules, name + " imported"
 jax_package = [m for m in sys.modules if m == "litepose_tpu" or m.startswith("litepose_tpu.")]
@@ -251,7 +263,8 @@ def test_port_runs_without_jax():
     twin), exports the serving program and runs the loaded artifact, draws
     and writes a skeleton as PNG, imports the op library, the summary and
     the export and demo CLIs, serves on a mesh of two host replicas, joins a
-    process group of one rank, then checks ``sys.modules``."""
+    process group of one rank, decodes maps with the host decoder, reads a
+    zipped JPEG, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,

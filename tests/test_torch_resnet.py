@@ -10,7 +10,7 @@ which fails (ROADMAP Queue 3), the port refuses it by name.
 Training: one SGD and one Adam step of the net with the CrowdPose head at
 64 px, b2, against JAX's ``StepFns`` (the tolerances of
 tests/test_torch_train.py, through
-``test_torch_super_resnet.check_step_against_jax``), and a checkpoint
+``torch_step_check.check_step_against_jax``), and a checkpoint
 with the optimizer state crossing both ways."""
 
 import os
@@ -28,7 +28,8 @@ from litepose_tpu_torch.models import litepose_resnet as res
 from litepose_tpu_torch.models.litepose import ModelSpec
 from litepose_tpu_torch.models.litepose_resnet import LitePoseResNet, init_litepose_resnet
 from test_torch_hrnet import assert_forward_equal, images, jax_forward, moved, port_forward
-from test_torch_super_resnet import LR, OUT, WD, adam_of, batch_b2, check_step_against_jax
+from test_torch_super_resnet import LR, OUT, WD, adam_of, batch_b2
+from torch_step_check import check_step_against_jax
 
 IMG = 64
 

@@ -49,6 +49,7 @@ from litepose_tpu_torch.train import optim
 from litepose_tpu_torch.train.checkpoint import init_train_state
 from litepose_tpu_torch.train.trainer import StepFns
 from test_torch_hrnet import images, moved
+from torch_step_check import check_step_against_jax, leaves
 
 IMG, B = 64, 2
 OUT = [IMG // 4, IMG // 2]
@@ -94,12 +95,6 @@ def trees():
 def port_model(trees, dtype=torch.float32):
     return convert.super_resnet_from_jax(*trees, SPEC, FILTERS, compute_dtype=dtype,
                                          out_dtype=dtype).to(dtype)
-
-
-def leaves(tree):
-    import jax
-
-    return jax.tree_util.tree_leaves_with_path(tree)
 
 
 def bn_widths(desc) -> dict:
@@ -395,49 +390,6 @@ def adam_of(name, params):
     from litepose_tpu.train import optim as jopt
 
     return jopt.make_optimizer("adam", jopt.multistep_lr(LR["adam"], [100], 0.1, 10)), params
-
-
-def _rel(a, b):
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
-
-
-def check_step_against_jax(want, ts, metrics, grads, exact, table, to_jax, adam=None):
-    """tests/test_torch_train.py's ``_check_against_jax`` for a model whose
-    table is ``table`` and whose (params, state) trees ``to_jax`` gives.
-
-    ``adam``: (the step's optax Adam, the parameters before the step).
-    Adam's first update is ``lr * g / (|g| + eps)``: where |g| is near
-    1e-7 a 1e-5 relative difference in the gradient moves the parameter by
-    more than 1e-5 (at lr 2e-3 two of the 20 M parameters do), so after
-    an Adam step the parameters are held at atol 1e-5 to optax's update of
-    the port's own gradients, which the gradient checks hold to JAX's."""
-    import jax
-
-    from litepose_tpu_torch.models.convert import tree_from_named
-
-    assert sorted(metrics) == sorted(want["metrics"])
-    for k, v in want["metrics"].items():
-        np.testing.assert_allclose(metrics[k], v, rtol=1e-5, err_msg=k)
-    g_tree = tree_from_named(grads, table)
-    x_tree = tree_from_named({n: g.double().numpy() for n, g in exact.items()}, table)
-    for (path, g), (_, w), (_, x) in zip(leaves(g_tree), leaves(want["grads"]), leaves(x_tree)):
-        name = jax.tree_util.keystr(path)
-        assert _rel(g, x) <= 1e-4, (name, _rel(g, x))
-        assert _rel(g, w) <= 1e-4 + _rel(w, x), (name, _rel(g, w), _rel(w, x))
-    p_tree, s_tree = to_jax(ts.model)
-    assert len(leaves(s_tree)) == len(leaves(want["state"]))
-    for (path, s), (_, w) in zip(leaves(s_tree), leaves(want["state"])):
-        np.testing.assert_allclose(s, w, atol=2e-4, rtol=0, err_msg=jax.tree_util.keystr(path))
-    want_params = want["params"]
-    if adam is not None:
-        import optax
-
-        tx, before = adam
-        upd, _ = jax.jit(tx.update)(g_tree, tx.init(before), before)
-        want_params = jax.tree.map(np.asarray, optax.apply_updates(before, upd))
-    for (path, p), (_, w) in zip(leaves(p_tree), leaves(want_params)):
-        np.testing.assert_allclose(p, w, atol=1e-5, rtol=0, err_msg=jax.tree_util.keystr(path))
-    return g_tree
 
 
 @pytest.mark.parametrize("desc", ["max", "quarter"])

@@ -285,21 +285,6 @@ def test_train_cli_fixed_litepose(tmp_path):
     assert run.ts.model.arch.img_size == 64 and np.isfinite(run.epochs[0]["total"])
 
 
-@pytest.mark.parametrize("cfg", ["higher_hrnet/w32_512_adam_lr1e-3.yaml",
-                                 "efficient_hrnet/H-3.yaml"])
-def test_train_cli_refuses_the_families(cfg, tmp_path):
-    """The HRNet families do not train until their steps are held to
-    JAX's: the CLI raises naming ROADMAP M10 before it writes a run
-    directory (the ResNet space trains: tests/test_torch_resnet_train_cli.py)."""
-    from litepose_tpu_torch.tools import train
-
-    out = tmp_path / "output"
-    with pytest.raises(NotImplementedError, match="ROADMAP M10"):
-        train.main(["--cfg", os.path.join(REPO, "configs", "crowd_pose", cfg), "--device", "cpu",
-                    "OUTPUT_DIR", str(out), "LOG_DIR", str(tmp_path / "log")])
-    assert not out.exists()
-
-
 def test_gen_arch_matches_jax(tmp_path, monkeypatch):
     from litepose_tpu_torch.tools import gen_arch
 
