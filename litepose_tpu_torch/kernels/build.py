@@ -60,8 +60,9 @@ _SIGNATURES = {
     "lp_nms_topk_limits": (_INT, _INT_P, _INT_P, _INT_P),
     # det, is_bf16, val, pos, planes, H, W, M, r, stream (K1')
     "lp_nms_topk_loop": (_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
-    # H, W, M, r -> a plane CTA's shared memory bytes, or -1 beyond a CTA's
-    "lp_nms_topk_loop_smem": (_INT, _INT, _INT, _INT),
+    # H, W, r, is_bf16, shared memory bytes, a CTA's budget (outputs) -> the
+    # instance (1 staged, 2 lean) or -1 beyond both
+    "lp_nms_topk_loop_plan": (_INT, _INT, _INT, _INT, _INT_P, _INT_P),
     # tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
     # tag_thr, use_val, ignore_too_much, stream
     "lp_group_greedy": _GROUP_ARGS,
@@ -110,8 +111,9 @@ def source_hash(extra_flags: tuple = (), flags: tuple = NVCC_FLAGS,
 
 def build(extra_flags: tuple = ()) -> tuple[Path, float, str]:
     """Compile the sources unless this exact build exists.  ``extra_flags``
-    (e.g. ``-DLP_GROUP_CLOCK`` for ``tools/group_clock.py``) go to every
-    nvcc and into the build's hash.
+    (e.g. ``-DLP_GROUP_CLOCK`` for ``tools/group_clock.py``,
+    ``-DLP_TOPK_CLOCK`` for ``tools/topk_clock.py``) go to every nvcc and
+    into the build's hash.
 
     Returns (library path, seconds spent compiling, compiler log); seconds
     is 0.0 when an existing build was reused."""

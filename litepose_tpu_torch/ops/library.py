@@ -167,16 +167,22 @@ def nms_topk_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor
 
 @_on_its_device
 def nms_topk_loop_cuda(det: Tensor, max_people: int, nms_kernel: int) -> Tuple[Tensor, Tensor]:
-    """K1': K1's contract by ``max_people`` serial max rounds, one CTA a plane."""
+    """K1': K1's contract by ``max_people`` serial rounds over each plane's
+    row keys, in one warp a plane; the kernel picks its instance (staged or
+    lean) by shape."""
     from .topk import nms_topk as wrapper
 
     _contiguous("det", det)
     B, K, H, W = det.shape
     build, lib = _kernels()
     r = nms_kernel // 2
-    if lib.lp_nms_topk_loop_smem(H, W, max_people, r) < 0:
+    smem, budget = ctypes.c_int(), ctypes.c_int()
+    if lib.lp_nms_topk_loop_plan(H, W, r, int(det.dtype == torch.bfloat16), ctypes.byref(smem),
+                                 ctypes.byref(budget)) < 0:
         raise ValueError(f"{H}x{W} planes exceed the shared memory of the K1' kernel's "
-                         f"CTA (H row keys and 8 rows of W + {2 * r} floats)")
+                         f"CTA: its lean instance needs {smem.value} bytes (8 a row for the "
+                         f"row keys, 4 (W + {2 * r}) for the row buffer) of the "
+                         f"{budget.value} a CTA may have")
     val = torch.empty((B, K, max_people), dtype=torch.float32, device=det.device)
     pos = torch.empty((B, K, max_people), dtype=torch.int32, device=det.device)
     if B * K:

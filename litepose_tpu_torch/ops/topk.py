@@ -3,8 +3,9 @@
 
 ``nms_topk`` launches ``csrc/nms_topk.cu`` (K1, row bands and a merge) for a
 CUDA tensor, or with ``_gather="sum"`` / ``"dot"`` ``csrc/nms_topk_loop.cu``
-(K1', the per-plane loop over a row-max vector that the JAX package keeps as
-K1's baseline; no config selects it), and runs the plain twin
+(K1', the per-plane serial extraction over the plane's row keys that the JAX
+package keeps as K1's baseline, each plane's rounds in one warp over the
+rows' cached candidates; no config selects it), and runs the plain twin
 ``nms_topk_ref`` for a CPU tensor, both through the registered ops
 ``torch.ops.litepose.nms_topk`` / ``nms_topk_loop`` (``ops/library.py``);
 ``top_k_peaks_batch`` adds the tag gather and the x/y decode around K1.
@@ -38,10 +39,11 @@ def nms_topk(det: torch.Tensor, max_people: int, nms_kernel: int = 5,
     tie order included.  A CPU tensor takes the plain twin whatever
     ``_gather``; a CUDA tensor launches a kernel: ``"vec"`` (the default,
     JAX's private argument of ``nms_topk_pallas``) K1, counted by
-    ``nms_topk.launches``; ``"sum"`` and ``"dot"`` K1', counted by
-    ``nms_topk.loop_launches``.  On the TPU "dot" picked a row by an MXU
-    product that is not exact; the card has no such pass, so both run the
-    same exact kernel."""
+    ``nms_topk.launches``; ``"sum"`` and ``"dot"`` K1' (its staged instance,
+    or its lean one for planes too wide or too tall for that; a ValueError
+    beyond both), counted by ``nms_topk.loop_launches``.  On the TPU "dot"
+    picked a row by an MXU product that is not exact; the card has no such
+    pass, so both run the same exact kernel."""
     if _gather not in ("vec", "sum", "dot"):
         raise ValueError(f"_gather must be 'vec', 'sum' or 'dot', got {_gather!r}")
     if det.dim() != 4:

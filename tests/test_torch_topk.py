@@ -353,18 +353,8 @@ def test_wrapper_rejects_unknown_gather():
         nms_topk(torch.zeros(1, 1, 8, 8), M, _gather="mxu")
 
 
-def _value_key(v: torch.Tensor) -> torch.Tensor:
-    """The K1' kernel's value bits (orderable, -0.0 as +0.0) as the high word
-    of an int64 whose signed order is the key's unsigned order."""
-    return pack_keys(v, torch.zeros_like(v, dtype=torch.int64)) & ~0xFFFFFFFF
-
-
-def _index_key(value: torch.Tensor, idx) -> torch.Tensor:
-    return value | (0xFFFFFFFF - torch.as_tensor(idx, dtype=torch.int64))
-
-
 def row_suppressed(x: torch.Tensor, y: int, r: int) -> torch.Tensor:
-    """Row y of the suppressed plane, recomputed from the input as the K1'
+    """Row y of the suppressed plane, computed from the input as the K1'
     kernel does: the vertical max over rows y - r .. y + r, r columns of
     -inf on each side, the horizontal max, the equality test."""
     H, W = x.shape
@@ -374,51 +364,72 @@ def row_suppressed(x: torch.Tensor, y: int, r: int) -> torch.Tensor:
     return torch.where(m == x[y], x[y], torch.zeros_like(x[y]))
 
 
-def loop_nms_topk(det: torch.Tensor, m: int, kernel: int):
-    """K1' as the kernel computes it: per plane the H row keys (the row's
-    largest cell key's value, then the lower row first), then m rounds: the
-    largest row key's row recomputed, the cells earlier rounds took masked
-    by position, the two largest cell keys: slot i and the row's new key."""
+# (the keys pass 1 leaves a row, the keys a refill leaves): kFirst and kCache
+# of the kernel's staged instance; the lean one keeps one key a row
+LOOP_INSTANCES = {"staged": (2, 4), "lean": (1, 1)}
+NO_ROW = -(2**32)  # below every row key's value word
+
+
+def top_below(keys: torch.Tensor, last, n: int) -> list:
+    """The n largest of a row's cell keys below ``last`` (None: all),
+    descending: what the kernel's ``row_top`` leaves in the row's cache."""
+    if last is not None:
+        keys = keys[keys < last]
+    return keys.sort(descending=True).values[:n].tolist()
+
+
+def loop_nms_topk(det: torch.Tensor, m: int, kernel: int, instance=(2, 4)):
+    """K1' as the kernel computes it, ``instance`` = (first, cache): (2, 4)
+    staged, (1, 1) lean -> (val, pos, refills).  Pass 1 leaves each row its
+    ``first`` largest cell keys (K1's key with the column for the flat
+    index).  Then m rounds: a row's key is the value word of its cache's
+    head (none when the cache is spent); the largest, on the lowest row
+    holding it (the two warp reductions), gives the row; its head is slot
+    i; a row whose last fill was all taken refills from the plane with its
+    next ``cache`` keys below the one just taken, and a row whose fill held
+    fewer keys than it asked for has no cell left."""
+    first, cache = instance
     r = kernel // 2
     x = det.float()
     B, K, H, W = x.shape
     val = torch.empty((B, K, m), dtype=torch.float32)
     pos = torch.empty((B, K, m), dtype=torch.int32)
-    cols = torch.arange(W)
+    refills = 0
     for b in range(B):
         for k in range(K):
-            plane = x[b, k]
-            rowkey = torch.stack([_index_key(_value_key(row_suppressed(plane, y, r)).max(), y)
-                                  for y in range(H)])
-            taken = []
+            keys = [pack_keys(row_suppressed(x[b, k], y, r), torch.arange(W)) for y in range(H)]
+            cached = [top_below(kk, None, first) for kk in keys]
+            head, fill = [0] * H, [first] * H
             for i in range(m):
-                y = 0xFFFFFFFF - int(rowkey.max() & 0xFFFFFFFF)
-                s = row_suppressed(plane, y, r)
-                keys = _index_key(_value_key(s), cols)
-                for t in taken:
-                    if t // W == y:
-                        keys[t % W] = SENTINEL
-                top = keys.sort(descending=True).values
-                c = 0xFFFFFFFF - int(top[0] & 0xFFFFFFFF)
-                val[b, k, i], pos[b, k, i] = s[c], y * W + c
-                taken.append(y * W + c)
-                second = top[1] if W > 1 else torch.tensor(SENTINEL)
-                rowkey[y] = SENTINEL if second == SENTINEL else _index_key(
-                    second & ~0xFFFFFFFF, y)
-    return val, pos
+                words = [c[h] >> 32 if h < len(c) else NO_ROW for c, h in zip(cached, head)]
+                y = words.index(max(words))
+                key = cached[y][head[y]]
+                v, c = unpack_keys(torch.tensor([key]))
+                val[b, k, i], pos[b, k, i] = v[0], y * W + c[0]
+                head[y] += 1
+                if head[y] == fill[y]:
+                    cached[y], head[y], fill[y] = top_below(keys[y], key, cache), 0, cache
+                    refills += 1
+    return val, pos, refills
+
+
+def _assert_loop_equals_twin(det: torch.Tensor, m: int, kernel: int, instance) -> int:
+    got_v, got_p, refills = loop_nms_topk(det, m, kernel, instance)
+    want_v, want_p = nms_topk_ref(det, m, kernel)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    return refills
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("kernel", [3, 5, 7])
 def test_loop_emulation_matches_twin(case, kernel):
-    """The row-recompute design, emulated, against the twin bit for bit
-    (-0.0 included), fp32 and bf16 planes, NMS windows 3 to 7."""
+    """The row-cache design, emulated in both instances, against the twin
+    bit for bit (-0.0 included), fp32 and bf16 planes, NMS windows 3 to 7."""
     for dtype in (torch.float32, torch.bfloat16):
         det = torch.from_numpy(_planes(case)).to(dtype)
-        got_v, got_p = loop_nms_topk(det, M, kernel)
-        want_v, want_p = nms_topk_ref(det, M, kernel)
-        assert torch.equal(got_p, want_p)
-        assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+        for instance in LOOP_INSTANCES.values():
+            _assert_loop_equals_twin(det, M, kernel, instance)
 
 
 def test_loop_emulation_narrow_planes():
@@ -428,10 +439,131 @@ def test_loop_emulation_narrow_planes():
     for shape in ((1, 2, 9, 3), (1, 1, 12, 1), (1, 1, 1, 12)):
         det = torch.from_numpy(rng.integers(0, 3, shape).astype(np.float32))
         for kernel in (3, 7):
-            got_v, got_p = loop_nms_topk(det, min(M, shape[2] * shape[3]), kernel)
-            want_v, want_p = nms_topk_ref(det, min(M, shape[2] * shape[3]), kernel)
-            assert torch.equal(got_p, want_p)
-            assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+            for instance in LOOP_INSTANCES.values():
+                _assert_loop_equals_twin(det, min(M, shape[2] * shape[3]), kernel, instance)
+
+
+STRESS = ["one_row", "crowded_row", "row_plateau", "negative_zero", "few_peaks"]
+
+
+def _stress_planes(case: str) -> np.ndarray:
+    """(1, 2, H, W) fp32 planes that work the row caches and their refills."""
+    rng = np.random.default_rng(20 + STRESS.index(case))
+    det = (0.05 * rng.random((1, 2, 12, 48))).astype(np.float32)
+    if case == "one_row":  # all M peaks in one row: its cache empties and refills
+        det[0, :, 6, ::3] = np.linspace(0.9, 0.5, 16, dtype=np.float32)
+    elif case == "crowded_row":  # more peaks than a cache in one row, between other rows'
+        det[0, :, 3, 2::5] = np.float32(0.7) - 0.02 * np.arange(10, dtype=np.float32)
+        det[0, :, 8, 7::9] = np.float32(0.69) - 0.02 * np.arange(5, dtype=np.float32)
+        det[0, 1, 10, ::4] = 0.7  # ties with the crowded row's first peak
+    elif case == "row_plateau":  # equal values across rows: flat order through the block
+        det[0, 0, 2:9, 3:40] = 0.5
+        det[0, 1] = 0.25
+    elif case == "negative_zero":  # -0.0 everywhere, +0.0 and negatives here and there
+        det[0, 0] = -0.0
+        det[0, 0, 5, 7::11] = 0.0
+        det[0, 1] = np.where(rng.random((12, 48)) < 0.3, -0.0, -rng.random((12, 48)))
+    elif case == "few_peaks":  # fewer than M peaks: the zeros in flat order, then negatives
+        det[0] = -1.0 - rng.random((2, 12, 48)).astype(np.float32)
+        det[0, 0, 4, 9] = 0.8
+        det[0, 0, 10, 30] = 0.3
+    else:
+        raise KeyError(case)
+    return det
+
+
+@pytest.mark.parametrize("instance", list(LOOP_INSTANCES))
+@pytest.mark.parametrize("case", STRESS)
+def test_loop_emulation_stress(case, instance):
+    """The caches' refills: one row holding every peak, a row with more
+    peaks than its cache, a plateau across rows, -0.0 planes, fewer than M
+    peaks; equal to the twin in fp32 and bf16, windows 3 to 7.  M = 12: the
+    staged instance refills in every case."""
+    refills = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        det = torch.from_numpy(_stress_planes(case)).to(dtype)
+        for kernel in (3, 5, 7):
+            refills += _assert_loop_equals_twin(det, 12, kernel, LOOP_INSTANCES[instance])
+    assert refills > 0
+
+
+# The K1' kernel's choice of instance (csrc/nms_topk_loop.cu: plan, layout),
+# and the shared memory the earlier row-recompute kernel needed, for the
+# limits tests.
+LOOP_BUDGET = 227 * 1024  # a CTA's dynamic shared memory
+OLD_LOOP_BUDGET = 226 * 1024
+
+
+def _up16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def loop_layout_bytes(H: int, W: int, r: int, elem: int, chunk: int, cache: int,
+                      buffer: bool) -> int:
+    """Ring, row caches (with their value words, heads and fills when
+    cache > 1), and the lean instance's row buffer."""
+    pitch = (W + 63) // 64 * 64  # a ring row: W rounded up to a warp's 64-column tile
+    ring = _up16((2 * chunk + 2 * r if chunk else 0) * pitch * elem)
+    rows = _up16(H * cache * 8) + (_up16(H * 4) + 2 * _up16(H) if cache > 1 else 0)
+    return ring + rows + (_up16(4 * (W + 2 * r)) if buffer else 0)
+
+
+def loop_plan(H: int, W: int, r: int, elem: int):
+    """(1 staged / 2 lean / -1, shared memory bytes): for windows up to 63
+    (the shuffle horizontal max), chunks of 16 rows while a staged CTA fits
+    a quarter of the budget, else 8, else the lean instance."""
+    if r <= 31:
+        for chunk in (16, 8):  # 2 and 1 rows a warp of 8
+            b = loop_layout_bytes(H, W, r, elem, chunk, 4, False)
+            if b <= (LOOP_BUDGET // 4 if chunk == 16 else LOOP_BUDGET):
+                return 1, b
+    b = loop_layout_bytes(H, W, r, elem, 0, 1, True)
+    return (2 if b <= LOOP_BUDGET else -1), b
+
+
+def old_loop_smem(H: int, W: int, M: int, r: int) -> int:
+    """The earlier kernel's CTA: H row keys, 8 warps' rows of W + 2r floats, M
+    taken positions."""
+    return 8 * H + 8 * 4 * (W + 2 * r) + 4 * M
+
+
+def old_loop_shapes():
+    """(H, W, M, r) the earlier kernel took: a grid, and at each W and r the
+    tallest plane, at each H and r the widest."""
+    out = []
+    for r in (0, 1, 2, 3):
+        for H in (1, 2, 45, 224, 448, 512, 1000, 6000, 20000):
+            for W in (1, 3, 224, 448, 704, 2900, 4200, 7000):
+                for M in (1, 30, 1000):
+                    out.append((H, W, M, r))
+        for W in (1, 2, 33, 448, 3000, 7000):
+            out.append(((OLD_LOOP_BUDGET - old_loop_smem(0, W, 1, r)) // 8, W, 1, r))
+        for H in (1, 64, 448, 10000):
+            out.append((H, (OLD_LOOP_BUDGET - old_loop_smem(H, 0, 1, r)) // 32 - 2 * r, 1, r))
+    return [(H, W, M, r) for H, W, M, r in out
+            if H >= 1 and W >= 1 and M <= H * W and old_loop_smem(H, W, M, r) <= OLD_LOOP_BUDGET]
+
+
+def test_loop_plan_takes_every_old_shape():
+    """Every shape the earlier kernel took is taken by the redesign (mostly by
+    its staged instance; the widest, the tallest and windows wider than 63
+    by its lean one), and the serving, eval and 512x704 planes by the
+    staged one; the lean one takes 40x6000 fp32, 6600x3 and k = 65."""
+    shapes = old_loop_shapes()
+    assert len(shapes) > 500
+    seen = set()
+    for H, W, M, r in shapes:
+        for elem in (2, 4):
+            instance, _ = loop_plan(H, W, r, elem)
+            assert instance > 0, (H, W, M, r, elem)
+            seen.add(instance)
+    assert seen == {1, 2}
+    for H, W in ((224, 224), (448, 448), (512, 704), (45, 224), (300, 1)):
+        for elem in (2, 4):
+            assert loop_plan(H, W, 2, elem)[0] == 1
+    assert loop_plan(40, 6000, 2, 4)[0] == 2 and loop_plan(40, 6000, 1, 2)[0] == 1
+    assert loop_plan(6600, 3, 3, 4)[0] == loop_plan(6600, 3, 1, 2)[0] == 2
+    assert loop_plan(50, 90, 32, 4)[0] == 2
 
 
 @pytest.mark.cuda
@@ -455,11 +587,27 @@ def test_loop_kernel_matches_twin_and_k1_on_card(cuda, case, dtype, gather):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", STRESS)
+def test_loop_kernel_stress_on_card(cuda, case):
+    """The emulation's refill cases on the card, bit-equal to the twin."""
+    for dtype in (torch.float32, torch.bfloat16):
+        det = torch.from_numpy(_stress_planes(case)).to(dtype)
+        for kernel in (3, 5, 7):
+            want_v, want_p = nms_topk_ref(det, 12, kernel)
+            val, pos = nms_topk(det.to(cuda), 12, kernel, _gather="sum")
+            torch.cuda.synchronize()
+            assert torch.equal(pos.cpu(), want_p)
+            assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 14, 448, 448), (1, 3, 512, 704), (1, 2, 45, 224),
-                                   (1, 1, 300, 1)])
+                                   (1, 1, 300, 1), (1, 2, 40, 6000), (1, 1, 6600, 3)])
 def test_loop_kernel_on_card_shapes(cuda, shape):
     """Eval planes, a plane of one column (every row runs out after its one
-    cell), the K1 traps: bit-equal to the twin, fp32 and bf16, windows 3-7."""
+    cell), the K1 traps, and planes too wide (40x6000 fp32) or too tall
+    (6600x3) for the staged instance, which the lean one takes: bit-equal to
+    the twin, fp32 and bf16, windows 3-7."""
     rng = np.random.default_rng(3)
     det = (0.3 * rng.random(shape)).astype(np.float32)
     if shape[3] > 11:
@@ -476,10 +624,40 @@ def test_loop_kernel_on_card_shapes(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [65, 101])
+def test_loop_kernel_wide_window_on_card(cuda, kernel):
+    """Windows wider than the shuffle horizontal max takes (r > 31) go to
+    the lean instance's row buffer: bit-equal to the twin."""
+    rng = np.random.default_rng(kernel)
+    det = torch.from_numpy((0.3 * rng.random((1, 3, 50, 90))).astype(np.float32))
+    det[0, 1, 20:, :40] = -0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        want_v, want_p = nms_topk_ref(det.to(dtype), 30, kernel)
+        val, pos = nms_topk(det.to(dtype).to(cuda), 30, kernel, _gather="sum")
+        torch.cuda.synchronize()
+        assert torch.equal(pos.cpu(), want_p)
+        assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_loop_kernel_limits_on_card(cuda):
+    """The kernel's plan equals the formula above on every shape the earlier
+    kernel took (so each is still taken), and a plane beyond the lean
+    instance raises naming the limit."""
+    import ctypes
+
     from litepose_tpu_torch.kernels import build
 
     lib = build.load()
-    assert lib.lp_nms_topk_loop_smem(448, 448, 30, 2) == 448 * 8 + 8 * 452 * 4 + 30 * 4
+    smem, budget = ctypes.c_int(), ctypes.c_int()
+    for H, W, M, r in old_loop_shapes():
+        for is_bf16 in (0, 1):
+            instance = lib.lp_nms_topk_loop_plan(H, W, r, is_bf16, ctypes.byref(smem),
+                                                 ctypes.byref(budget))
+            assert instance > 0, (H, W, M, r, is_bf16)
+            assert (instance, smem.value) == loop_plan(H, W, r, 2 if is_bf16 else 4)
+    assert budget.value == LOOP_BUDGET
+    assert lib.lp_nms_topk_loop_plan(30000, 1, 2, 0, ctypes.byref(smem),
+                                     ctypes.byref(budget)) == -1
     with pytest.raises(ValueError, match="shared memory of the K1' kernel"):
-        nms_topk(torch.zeros(1, 1, 4, 8000, device=cuda), 30, 5, _gather="sum")
+        nms_topk(torch.zeros(1, 1, 30000, 1, device=cuda), 30, 5, _gather="sum")
