@@ -156,7 +156,7 @@ class PoseEngine:
     @torch.inference_mode()
     def _decode(self, det: torch.Tensor, tag: torch.Tensor):
         return parse_batch(det, tag, self.group_cfg, self.config.with_adjust,
-                           self.config.with_refine)
+                           self.config.with_refine, tag_layout="thw")
 
     def run_batch(self, images_u8):
         """uint8 (B, H, W, 3) images -> (det, tag, people, scores, counts),

@@ -57,7 +57,8 @@ class FusedBody(torch.nn.Module):
         from ..ops.group import parse_batch
 
         det, tag = self.infer(images_u8)
-        return parse_batch(det, tag, self.group_cfg, self.with_adjust, self.with_refine)
+        return parse_batch(det, tag, self.group_cfg, self.with_adjust, self.with_refine,
+                           tag_layout="thw")
 
 
 class _WeightsAsArguments(torch.nn.Module):

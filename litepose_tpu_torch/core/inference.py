@@ -6,7 +6,10 @@ normalization, the forward pass (plus the mirrored forward under flip
 test), bilinear upsampling of the non-final stages, heatmap averaging, tag
 collection and the optional projection.  It returns the decode layout of
 the JAX ``make_infer_fn(decode_layout=True)``: det (B, J, H, W) and tag
-(B, J, T, H, W); the "hwt" layout has no counterpart here.
+(B, J, T, H, W).  ``to_decode_layout`` turns the JAX NHWC aggregation
+layout into the "hwt" one, det (B, J, H, W) and tag (B, J, H, W, T), which
+``ops.group.parse_batch(..., tag_layout="hwt")`` and, image by image,
+``ops.group.parse_single`` take.
 """
 
 from __future__ import annotations
@@ -188,3 +191,10 @@ def make_infer_fn(apply_fn: Callable[[torch.Tensor], List[torch.Tensor]],
         return heat.contiguous(), tag.contiguous()
 
     return infer
+
+
+def to_decode_layout(heat: torch.Tensor, tag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NHWC aggregation layout, heat (B, H, W, J) and tag (B, H, W, J,
+    T), as the "hwt" decode layout: det (B, J, H, W) and tag (B, J, H, W,
+    T), contiguous (counterpart of the JAX ``to_decode_layout``)."""
+    return (heat.permute(0, 3, 1, 2).contiguous(), tag.permute(0, 3, 1, 2, 4).contiguous())

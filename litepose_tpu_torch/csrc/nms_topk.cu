@@ -2,13 +2,14 @@
 // (K1), in row bands with a merge per plane.
 //
 // Replaces the Pallas TPU kernel `_nms_topk_kernel_vec`
-// (litepose_tpu/ops/pallas_topk.py:43, reached through `nms_topk_pallas`),
-// and on the serving path also `_nms_kernel` (pallas_nms.py:27).  Contract,
-// bit for bit with `heatmap_nms` + `lax.top_k` on fp32 and with the plain
-// twin `litepose_tpu_torch.ops.topk.nms_topk_ref`:
+// (litepose_tpu/ops/pallas_topk.py:43, reached through `nms_topk_pallas`).
+// Contract, bit for bit with `heatmap_nms` + `lax.top_k` on fp32 and with
+// the plain twin `litepose_tpu_torch.ops.topk.nms_topk_ref`:
 //   * NMS: a pixel keeps its value when it equals the max of its k x k
 //     window (out-of-plane cells count as -inf), otherwise it becomes +0;
-//     bf16 input is upcast to fp32 before any compare;
+//     a NaN spreads through the window max, so it and every cell within
+//     r of it become +0 (csrc/nms_common.cuh); bf16 input is upcast to
+//     fp32 before any compare;
 //   * top-M of the suppressed plane, values descending, ties to the lowest
 //     flat row-major index; a plane with fewer than M peaks yields its
 //     zeros in flat order.
@@ -58,6 +59,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "nms_common.cuh"
 
 namespace {
 
@@ -241,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float* col = raw + i;  // raw row yb (plane row y0 + yb - r)
     float m = col[0];
 #pragma unroll
-    for (int d = 1; d <= 2 * r; ++d) m = fmaxf(m, col[d * W]);
+    for (int d = 1; d <= 2 * r; ++d) m = max_nan(m, col[d * W]);
     vm[yb * Wp + r + (i - yb * W)] = m;
   }
   __syncthreads();
@@ -261,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 3)
       const float* win = vm + yb * Wp + (i - yb * W);  // columns c - r .. c + r
       float m = win[0];
 #pragma unroll
-      for (int d = 1; d <= 2 * r; ++d) m = fmaxf(m, win[d]);
+      for (int d = 1; d <= 2 * r; ++d) m = max_nan(m, win[d]);
       const float xv = raw[i + r * W];
       v = (m == xv) ? xv : 0.0f;
       if (ti < 0 || v > tv) {

@@ -9,7 +9,8 @@
 // `litepose_tpu_torch.ops.topk.nms_topk_ref`:
 //   * NMS: a pixel keeps its value when it equals the max of its k x k
 //     window (out-of-plane cells count as -inf), otherwise it becomes +0;
-//     bf16 input is upcast to fp32 before any compare;
+//     a NaN spreads through the window max (csrc/nms_common.cuh); bf16
+//     input is upcast to fp32 before any compare;
 //   * top-M of the suppressed plane, values descending (-0.0 equal to
 //     +0.0 and returned bit for bit), ties to the lowest flat row-major
 //     index; a plane with fewer than M peaks yields its zeros in flat
@@ -98,6 +99,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "nms_common.cuh"
 
 namespace {
 
@@ -241,7 +244,7 @@ struct Window {
     float m = to_f32(q[c]);
     for (int d = 1; d < n; ++d) {
       q = rows.next(q);
-      m = fmaxf(m, to_f32(q[c]));
+      m = max_nan(m, to_f32(q[c]));
     }
     return m;
   }
@@ -249,8 +252,8 @@ struct Window {
     float2 m = load_pair<T, kPadded>(p[0], c0, W);
     auto add = [&](const T* q) {
       const float2 v = load_pair<T, kPadded>(q, c0, W);
-      m.x = fmaxf(m.x, v.x);
-      m.y = fmaxf(m.y, v.y);
+      m.x = max_nan(m.x, v.x);
+      m.y = max_nan(m.y, v.y);
     };
     if constexpr (R >= 0) {
 #pragma unroll
@@ -389,7 +392,7 @@ __device__ u64 row_top(const Rows& rows, int H, int W, int y, int r_arg, float* 
     __syncwarp();
     for (int c = lane; c < W; c += 32) {
       float m = vm[c];
-      for (int d = 1; d <= 2 * r; ++d) m = fmaxf(m, vm[c + d]);
+      for (int d = 1; d <= 2 * r; ++d) m = max_nan(m, vm[c + d]);
       take(c, m, to_f32(xr[c]));
     }
     __syncwarp();  // read before the warp's next row writes it
@@ -407,8 +410,8 @@ __device__ u64 row_top(const Rows& rows, int H, int W, int y, int r_arg, float* 
       const float2 next = j + 1 < nj ? win.vpair(c0 + 64) : none;
       float ma = cur.x, mb = cur.y;
       if (r >= 1) {
-        ma = fmaxf(ma, cur.y);
-        mb = fmaxf(mb, cur.x);
+        ma = max_nan(ma, cur.y);
+        mb = max_nan(mb, cur.x);
       }
       auto across = [&](int e) {
         const int rs = (lane + e) & 31, ls = (lane - e) & 31;
@@ -417,21 +420,21 @@ __device__ u64 row_top(const Rows& rows, int H, int W, int y, int r_arg, float* 
         if (2 * e - 1 <= r) {
           const float ra = __shfl_sync(kFull, to_left.x, rs);   // c0 + 2e
           const float lb = __shfl_sync(kFull, to_right.y, ls);  // c0 - 2e + 1
-          ma = fmaxf(ma, lb);
-          mb = fmaxf(mb, ra);
+          ma = max_nan(ma, lb);
+          mb = max_nan(mb, ra);
           if (2 * e <= r) {
-            ma = fmaxf(ma, ra);
-            mb = fmaxf(mb, lb);
+            ma = max_nan(ma, ra);
+            mb = max_nan(mb, lb);
           }
         }
         if (2 * e <= r) {
           const float la = __shfl_sync(kFull, to_right.x, ls);  // c0 - 2e
           const float rb = __shfl_sync(kFull, to_left.y, rs);   // c0 + 2e + 1
-          ma = fmaxf(ma, la);
-          mb = fmaxf(mb, rb);
+          ma = max_nan(ma, la);
+          mb = max_nan(mb, rb);
           if (2 * e + 1 <= r) {
-            ma = fmaxf(ma, rb);
-            mb = fmaxf(mb, la);
+            ma = max_nan(ma, rb);
+            mb = max_nan(mb, la);
           }
         }
       };

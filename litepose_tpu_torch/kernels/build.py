@@ -30,8 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
-           "refine_argmax.cu")
-HEADERS = ("group_common.cuh",)
+           "refine_argmax.cu", "heatmap_nms.cu")
+HEADERS = ("group_common.cuh", "nms_common.cuh")
 LIB_NAME = "liblitepose_kernels.so"
 
 # sm_90a keeps Hopper-only instructions available to later kernels.
@@ -72,6 +72,8 @@ _SIGNATURES = {
     # need, prev, det, tag, best, pos, B, K, P, T, HW, vec, stream
     "lp_refine_argmax": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                          _INT, _INT, _INT, _PTR),
+    # det, is_bf16, out, planes, H, W, r, stream (K5)
+    "lp_heatmap_nms": (_PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _PTR),
 }
 
 

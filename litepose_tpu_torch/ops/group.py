@@ -9,10 +9,13 @@ Grouping runs as a kernel on CUDA tensors and as the plain twin
 ``litepose_tpu/ops/pallas_group.py:_group_kernel``, both reached through
 the registered ops ``torch.ops.litepose.group_greedy`` /
 ``group_hungarian`` (``ops/library.py``).  ``match_by_tag_batch``
-then scatters the peaks into per-person rows.  The twin follows the TPU
-kernel, which is what the JAX decode runs: |d| for one tag dimension, one
-rounding per multiply and add; greedy rows left out by their own detection
-mask, Hungarian rows by the score-sorted prefix they form.
+then scatters the peaks into per-person rows.  ``parse_batch`` decodes a
+batch from K1's peaks; ``parse_single`` decodes one image from K5's
+(``ops/nms.py:top_k_peaks``), as the JAX package's per-image decode does.
+The twin follows the TPU kernel, which is what the JAX decode runs: |d|
+for one tag dimension, one rounding per multiply and add; greedy rows left
+out by their own detection mask, Hungarian rows by the score-sorted prefix
+they form.
 """
 
 from __future__ import annotations
@@ -354,11 +357,37 @@ def refine(people: torch.Tensor, det: torch.Tensor, tag: torch.Tensor) -> torch.
     return out
 
 
+def parse_single(det: torch.Tensor, tag: torch.Tensor, cfg: StaticGroupCfg,
+                 with_adjust: bool = True, with_refine: bool = True):
+    """Decode of one image (counterpart of the JAX ``parse_single``): det
+    (K, H, W), tag (K, H, W, T) -> (people (PC, K, 3+T) in heatmap coords,
+    scores (PC,), n_people (), int32).
+
+    ``top_k_peaks`` (K5 and the top-M), then the batched decode's steps at
+    batch 1: K2 or K3 grouping, adjust, the person scores and K4 (refine).
+    It gives what ``parse_batch`` gives for that image.  CUDA tensors launch
+    the kernels, CPU tensors run their plain twins."""
+    from .nms import top_k_peaks
+
+    tag_k, loc_k, val_k = top_k_peaks(det, tag, cfg.max_people, cfg.nms_kernel,
+                                      cfg.nms_padding, cfg.topk_method)
+    people, n_cl = match_by_tag_batch(tag_k[None].float(), loc_k[None], val_k[None].float(),
+                                      cfg)
+    if with_adjust:
+        people = adjust(people, det[None])
+    scores = person_scores(people)
+    if with_refine:
+        people = refine_batch(people, det[None], tag.permute(0, 3, 1, 2)[None])
+    return people[0], scores[0], n_cl[0]
+
+
 def parse_batch(det: torch.Tensor, tag: torch.Tensor, cfg: StaticGroupCfg,
-                with_adjust: bool = True, with_refine: bool = True):
-    """Batched decode: det (B, K, H, W), tag (B, K, T, H, W) (the "thw"
-    layout of ``make_infer_fn``) -> (people (B, PC, K, 3+T) in heatmap
-    coords, scores (B, PC), n_people (B,)).
+                with_adjust: bool = True, with_refine: bool = True, tag_layout: str = "hwt"):
+    """Batched decode: det (B, K, H, W), tag (B, K, H, W, T)
+    (``tag_layout="hwt"``, the ``core.inference.to_decode_layout`` form and
+    JAX's default) or (B, K, T, H, W) (``"thw"``, the layout of
+    ``make_infer_fn``, which the engine passes) -> (people (B, PC, K, 3+T)
+    in heatmap coords, scores (B, PC), n_people (B,)).
 
     K1 (NMS + top-M), then K2 (greedy) or K3 (Hungarian) grouping, adjust,
     the person scores (after adjust, before refine, as the reference takes
@@ -366,6 +395,17 @@ def parse_batch(det: torch.Tensor, tag: torch.Tensor, cfg: StaticGroupCfg,
     run their plain twins."""
     if cfg.nms_padding != cfg.nms_kernel // 2:
         raise ValueError("the fused NMS + top-M assumes nms_padding == nms_kernel // 2")
+    if tag_layout not in ("hwt", "thw"):
+        raise ValueError(f"tag_layout must be 'hwt' or 'thw', got {tag_layout!r}")
+    hw = det.shape[2:]
+    if tag_layout == "hwt":
+        if tag.dim() != 5 or tag.shape[2:4] != hw:
+            raise ValueError(f"tag_layout='hwt' needs tag (B, K, H, W, T), got "
+                             f"{tuple(tag.shape)} for det {tuple(det.shape)}")
+        tag = tag.permute(0, 1, 4, 2, 3).contiguous()
+    elif tag.dim() != 5 or tag.shape[3:] != hw:
+        raise ValueError(f"tag_layout='thw' needs tag (B, K, T, H, W), got "
+                         f"{tuple(tag.shape)} for det {tuple(det.shape)}")
     tag_k, loc_k, val_k = top_k_peaks_batch(det, tag, cfg.max_people, cfg.nms_kernel)
     people, n_cl = match_by_tag_batch(tag_k, loc_k, val_k, cfg)
     if with_adjust:

@@ -4,7 +4,8 @@
 ``greedy_assign`` is the greedy serving matcher (the loop inside K2,
 ``csrc/group_greedy.cu``); ``hungarian_prefix`` is the exact
 Jonker-Volgenant solver of the eval decode, the plain twin of K3
-(``csrc/group_hungarian.cu``).  Both are batched over images.
+(``csrc/group_hungarian.cu``).  Both are batched over images;
+``hungarian`` is the JAX package's one square solve of every row.
 """
 
 from __future__ import annotations
@@ -138,3 +139,13 @@ def hungarian_prefix(cost: torch.Tensor, n_rows: torch.Tensor,
     hit = torch.arange(n, device=dev)[None, :, None] == rows[:, None, :]  # (B, m, j)
     col_of = torch.where(hit, torch.arange(n, device=dev), 0).sum(2)
     return torch.where(hit.any(2), col_of, n)
+
+
+def hungarian(cost: torch.Tensor) -> torch.Tensor:
+    """Min-cost assignment of every row of one square cost (counterpart of
+    the JAX ``hungarian``): cost (n, n) -> (n,) int32, the column of each
+    row; ``hungarian_prefix`` with all n rows."""
+    if cost.dim() != 2 or cost.shape[0] != cost.shape[1]:
+        raise ValueError(f"hungarian expects one square cost, got {tuple(cost.shape)}")
+    n_rows = torch.full((1,), cost.shape[0], dtype=torch.int64, device=cost.device)
+    return hungarian_prefix(cost[None], n_rows)[0].to(torch.int32)

@@ -16,12 +16,12 @@ three implementations:
   wrapper's ``launches``
   (``ops.topk.nms_topk.launches`` / ``.loop_launches``,
   ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
-  ``ops.refine.refine_argmax.launches``), so an artifact's launches count
-  too (under a lock: shard threads launch at once).  The kernels are built
-  and loaded at the first launch, by one thread.  A failed build or launch
-  raises;
+  ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``),
+  so an artifact's launches count too (under a lock: shard threads launch
+  at once).  The kernels are built and loaded at the first launch, by one
+  thread.  A failed build or launch raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
-  ``refine_argmax_ref``);
+  ``refine_argmax_ref``, ``nms_suppress_ref``);
 - fake: the output shapes and dtypes, for tracing.
 
 =====================  ===  ==========================  ================================
@@ -32,15 +32,17 @@ op                     #    kernel                      TPU kernel
 ``group_greedy``       K2   ``csrc/group_greedy.cu``    ``ops/pallas_group.py:164``
 ``group_hungarian``    K3   ``csrc/group_hungarian.cu`` ``ops/pallas_group.py:56``
 ``refine_argmax``      K4   ``csrc/refine_argmax.cu``   ``ops/pallas_refine.py:38``
+``heatmap_nms``        K5   ``csrc/heatmap_nms.cu``     ``ops/pallas_nms.py:27``
 =====================  ===  ==========================  ================================
 
 The grouping configuration crosses as plain arguments (the joint order as
 ``int[]``, thresholds as floats that reach the kernel as ``c_float``).
 Shape and dtype checks stay in the wrappers (``ops/topk.py``,
-``ops/group.py``, ``ops/refine.py``); what depends on the card (limits of
-a kernel's geometry, contiguity, alignment) is checked here.  This module
-imports nothing of the package at import time, so a process that loads an
-artifact imports it, and through it the twins, without any model code.
+``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``); what depends on the
+card (limits of a kernel's geometry, contiguity, alignment) is checked
+here.  This module imports nothing of the package at import time, so a
+process that loads an artifact imports it, and through it the twins,
+without any model code.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ MAX_TAG_DIM = 8  # kMaxTagDim in csrc/group_common.cuh and csrc/refine_argmax.cu
 MAX_PEAKS = 32  # one lane per peak row
 MAX_COLUMNS = 32  # one lane per cluster column (the JV solver's M + 1)
 MAX_PLANES = 65535  # the kernels' grid.y
+MAX_NMS_RADIUS = 7  # kMaxR in csrc/heatmap_nms.cu: windows up to 15
 
 _LIB = torch.library.Library("litepose", "DEF")
 _GROUP_ARGS = ("Tensor tag_k, Tensor val_k, int[] joint_order, int max_people, "
@@ -69,6 +72,7 @@ SCHEMAS = {
     "group_greedy": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
     "group_hungarian": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
     "refine_argmax": "(Tensor need, Tensor prev, Tensor det, Tensor tag) -> Tensor",
+    "heatmap_nms": "(Tensor det, int nms_kernel) -> Tensor",
 }
 OPS = tuple(SCHEMAS)
 
@@ -347,3 +351,41 @@ def _refine_argmax_fake(need: Tensor, prev: Tensor, det: Tensor, tag: Tensor) ->
 
 
 _register("refine_argmax", refine_argmax_cuda, _refine_argmax_twin, _refine_argmax_fake)
+
+
+# -- K5: the suppressed map ------------------------------------------------------
+
+
+@_on_its_device
+def heatmap_nms_cuda(det: Tensor, nms_kernel: int) -> Tensor:
+    """K5: det (N, H, W) fp32/bf16 -> the suppressed map, same shape and
+    dtype, in one launch."""
+    from .nms import nms_suppress as wrapper
+
+    _contiguous("det", det)
+    N, H, W = det.shape
+    r = nms_kernel // 2
+    if r > MAX_NMS_RADIUS:
+        raise ValueError(f"the K5 kernel takes NMS windows up to {2 * MAX_NMS_RADIUS + 1}, "
+                         f"got {nms_kernel}")
+    build, lib = _kernels()
+    out = torch.empty_like(det)
+    if det.numel():
+        err = lib.lp_heatmap_nms(det.data_ptr(), int(det.dtype == torch.bfloat16),
+                                 out.data_ptr(), N, H, W, r, _stream(det))
+        build.check(err, "heatmap_nms")
+        count_launch(wrapper)
+    return out
+
+
+def _heatmap_nms_twin(det: Tensor, nms_kernel: int) -> Tensor:
+    from .nms import nms_suppress_ref
+
+    return nms_suppress_ref(det, nms_kernel)
+
+
+def _heatmap_nms_fake(det: Tensor, nms_kernel: int) -> Tensor:
+    return torch.empty_like(det)
+
+
+_register("heatmap_nms", heatmap_nms_cuda, _heatmap_nms_twin, _heatmap_nms_fake)

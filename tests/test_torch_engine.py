@@ -108,7 +108,7 @@ def test_parse_batch_bit_equal_on_same_maps(slice_pair, dtype, topk_method):
     jp, js, jn = j_parse_batch(jd, jt, j_cfg, False, False, tag_layout="thw")
     td = torch.from_numpy(det).to(getattr(torch, dtype))
     tt = torch.from_numpy(tag).to(getattr(torch, dtype))
-    tp, ts, tn = parse_batch(td, tt, engine.group_cfg, False, False)
+    tp, ts, tn = parse_batch(td, tt, engine.group_cfg, False, False, tag_layout="thw")
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     # scores: a mean over 14 joints, summed in another order than XLA's

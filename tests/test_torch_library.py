@@ -1,6 +1,6 @@
 """The decode kernels as registered torch ops (``ops/library.py``): each of
 ``torch.ops.litepose.{nms_topk, nms_topk_loop, group_greedy,
-group_hungarian, refine_argmax}`` is registered, passes
+group_hungarian, refine_argmax, heatmap_nms}`` is registered, passes
 ``torch.library.opcheck`` (schema, fake implementation, autograd
 registration, tracing), and on the CPU equals its plain twin bit for bit;
 the same ``opcheck`` on the card is marked ``cuda``, and so is a launch on
@@ -16,6 +16,7 @@ import torch
 
 from litepose_tpu_torch.ops import library
 from litepose_tpu_torch.ops.group import GroupParams, StaticGroupCfg, match_by_tag
+from litepose_tpu_torch.ops.nms import nms_suppress_ref
 from litepose_tpu_torch.ops.refine import refine_argmax_ref
 from litepose_tpu_torch.ops.topk import nms_topk_ref
 
@@ -85,6 +86,10 @@ def _cases(device):
     for T in (1, 2, 3):
         cases.append(("refine_argmax", tuple(t.to(device) for t in _refine_inputs(T, T)),
                       refine_argmax_ref))
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in (3, 5):
+            cases.append(("heatmap_nms", (_planes(2, dtype)[0].to(device), kernel),
+                          nms_suppress_ref))
     return cases
 
 
@@ -93,7 +98,7 @@ CASE_IDS = [f"{i}-{c[0]}" for i, c in enumerate(_cases("cpu"))]
 
 def test_ops_registered():
     assert library.OPS == ("nms_topk", "nms_topk_loop", "group_greedy",
-                           "group_hungarian", "refine_argmax")
+                           "group_hungarian", "refine_argmax", "heatmap_nms")
     for name in library.OPS:
         op = getattr(torch.ops.litepose, name).default
         assert op._schema.name == f"litepose::{name}"

@@ -117,7 +117,7 @@ def test_parser_agrees_with_the_twins(name):
     cfg = StaticGroupCfg.from_params(p, assignment="hungarian")
     got, got_scores, n = parse_batch(torch.from_numpy(det[None]),
                                      torch.from_numpy(tag.transpose(0, 3, 1, 2)[None].copy()),
-                                     cfg, with_adjust=False, with_refine=False)
+                                     cfg, with_adjust=False, with_refine=False, tag_layout="thw")
     n = int(n[0])
     assert n == people.shape[0]
     np.testing.assert_allclose(got[0, :n].numpy(), people, atol=1e-4, rtol=0)

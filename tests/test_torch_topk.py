@@ -2,8 +2,10 @@
 
 On the CPU ``nms_topk`` runs its plain twin; it must equal the Pallas kernel
 ``nms_topk_pallas`` (interpret mode) and ``top_k_peaks_batch`` bit for bit,
-values and flat indices, tie order included.  The CUDA kernel is held
-against the twin on the card (marked ``cuda``, skipped without one).
+values and flat indices, tie order included, on planes with NaNs too (the
+window max carries a NaN, so its finite neighbours are suppressed).  The
+CUDA kernels are held against the twin on the card (marked ``cuda``,
+skipped without one).
 
 The machine with the card has no jax: only the ``jref`` fixture imports the
 JAX package, so ``pytest --noconftest -m cuda`` runs this file there."""
@@ -102,6 +104,51 @@ def test_twin_matches_pallas_kernel_bf16(jref, case):
     want_v, want_p = pallas_topk.nms_topk_pallas(det16, M, 5, _interp=True)
     np.testing.assert_array_equal(val.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want_p))
+
+
+def nan_planes(shape=(2, 3, 24, 32), seed=5) -> np.ndarray:
+    """(B, K >= 3, H, W >= 2) fp32 planes with NaNs: a single NaN beside
+    the largest finite value of its window (two on planes of 6 x 6 and
+    more), NaNs on the borders and corners, a NaN plane, NaN rows and
+    columns (NaN rows across any row band)."""
+    rng = np.random.default_rng(seed)
+    det = rng.standard_normal(shape).astype(np.float32)
+    B, K, H, W = shape
+    for y, x, v in nan_traps(H, W):
+        det[0, 0, y, x] = np.nan
+        det[0, 0, y, x + 1] = v  # its window's largest finite value: suppressed by the NaN
+    det[0, 1, 0, 0] = det[0, 1, H - 1, W - 1] = det[0, 1, 0, W // 2] = np.nan
+    det[0, 1, H // 2, W // 2] = 6.0
+    det[0, 2] = np.nan
+    det[1 % B, 0, 2::7] = np.nan
+    det[1 % B, 1, :, 5::9] = np.nan
+    return det
+
+
+def nan_traps(H: int, W: int) -> list:
+    """(y, x, value) of plane (0, 0)'s NaNs in ``nan_planes``: the cell at
+    (y, x + 1) holds ``value``, which a max that drops the NaN would keep."""
+    traps = [(min(10, H - 1), min(10, W - 2), 5.0)]
+    if H >= 6 and W >= 6:
+        traps.append((4, 3, 4.0))
+    return traps
+
+
+@pytest.mark.parametrize("kernel", [3, 5, 7])
+def test_twin_matches_pallas_kernel_with_nan(jref, kernel):
+    """A NaN spreads through the window max in the TPU kernel (jnp.maximum)
+    and in the twin (max_pool2d): the NaN and every cell within r of it
+    become +0, its finite neighbours included."""
+    jnp, pallas_topk = jref
+    det = nan_planes()
+    val, pos = nms_topk(torch.from_numpy(det), M, kernel)
+    want_v, want_p = pallas_topk.nms_topk_pallas(jnp.asarray(det), M, kernel, _interp=True)
+    np.testing.assert_array_equal(val.numpy().view(np.int32), np.asarray(want_v).view(np.int32))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want_p))
+    assert not torch.isnan(val).any()
+    W = det.shape[3]
+    assert not {y * W + x + 1 for y, x, _ in nan_traps(*det.shape[2:])} & set(pos[0, 0].tolist())
+    assert (val[0, 2] == 0).all() and torch.equal(pos[0, 2], torch.arange(M, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("T", [1, 2])
@@ -277,6 +324,43 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
         assert nms_topk.launches == before + 1
         assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
         assert torch.equal(pos.cpu(), want_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["vec", "sum", "dot"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_twin_with_nan_on_card(cuda, gather, dtype):
+    """K1 ("vec") and K1's staged instance ("sum", "dot") on NaN planes:
+    equal to the twin, the NaNs' finite neighbours suppressed."""
+    det = torch.from_numpy(nan_planes()).to(dtype)
+    for kernel in (3, 5, 7):
+        want_v, want_p = nms_topk_ref(det, M, kernel)
+        val, pos = nms_topk(det.to(cuda), M, kernel, _gather=gather)
+        torch.cuda.synchronize()
+        assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32))
+        assert torch.equal(pos.cpu(), want_p)
+        W = det.shape[3]
+        assert not ({y * W + x + 1 for y, x, _ in nan_traps(*det.shape[2:])}
+                    & set(pos[0, 0].tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel", [((2, 3, 448, 448), 5), ((1, 3, 512, 704), 7),
+                                          ((1, 3, 40, 6000), 5), ((1, 3, 6600, 3), 3),
+                                          ((1, 3, 50, 90), 65)])
+def test_kernels_match_twin_with_nan_on_card_shapes(cuda, shape, kernel):
+    """NaNs across K1's row bands at eval and trap shapes, and through the
+    lean instance of K1' (planes too wide or too tall for the staged one,
+    and a window wider than its shuffles, which takes the row buffer); K1
+    on the same planes."""
+    det = torch.from_numpy(nan_planes(shape, seed=kernel))
+    for dtype in (torch.float32, torch.bfloat16):
+        want_v, want_p = nms_topk_ref(det.to(dtype), 30, kernel)
+        for gather in ("vec", "sum"):
+            val, pos = nms_topk(det.to(dtype).to(cuda), 30, kernel, _gather=gather)
+            torch.cuda.synchronize()
+            assert torch.equal(pos.cpu(), want_p), gather
+            assert torch.equal(val.cpu().view(torch.int32), want_v.view(torch.int32)), gather
 
 
 @pytest.mark.cuda
