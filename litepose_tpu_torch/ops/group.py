@@ -28,7 +28,7 @@ import torch
 from . import library
 from .hungarian import BIG, greedy_assign, hungarian_prefix
 from .refine import refine_batch, sqrt_rn
-from .topk import top_k_peaks_batch
+from .topk import check_tag_layout, top_k_peaks_batch
 
 # Padding and clipping of the assignment cost, as in the JAX decode
 # (litepose_tpu/ops/group.py:33-35): costs stay far from fp32's coarse range.
@@ -320,9 +320,11 @@ def refine(people: torch.Tensor, det: torch.Tensor, tag: torch.Tensor) -> torch.
     (``litepose_tpu/ops/group.py:207-245``), batched, and the oracle of the
     predicated ``ops.refine.refine_batch`` (K4).
 
-    people (B, P, K, 3+T), det (B, K, H, W), tag (B, K, T, H, W)."""
+    people (B, P, K, 3+T), det (B, K, H, W), tag (B, K, T, H, W); a tag
+    in another layout raises ValueError."""
     from .refine import first_argmax, person_mean_tags
 
+    check_tag_layout(det, tag, "thw")
     B, P, K, _ = people.shape
     H, W = det.shape[-2:]
     det = det.float()
@@ -377,7 +379,8 @@ def parse_single(det: torch.Tensor, tag: torch.Tensor, cfg: StaticGroupCfg,
         people = adjust(people, det[None])
     scores = person_scores(people)
     if with_refine:
-        people = refine_batch(people, det[None], tag.permute(0, 3, 1, 2)[None])
+        people = refine_batch(people, det[None], tag.permute(0, 3, 1, 2)[None],
+                              tag_layout="thw")
     return people[0], scores[0], n_cl[0]
 
 
@@ -395,22 +398,15 @@ def parse_batch(det: torch.Tensor, tag: torch.Tensor, cfg: StaticGroupCfg,
     run their plain twins."""
     if cfg.nms_padding != cfg.nms_kernel // 2:
         raise ValueError("the fused NMS + top-M assumes nms_padding == nms_kernel // 2")
-    if tag_layout not in ("hwt", "thw"):
-        raise ValueError(f"tag_layout must be 'hwt' or 'thw', got {tag_layout!r}")
-    hw = det.shape[2:]
-    if tag_layout == "hwt":
-        if tag.dim() != 5 or tag.shape[2:4] != hw:
-            raise ValueError(f"tag_layout='hwt' needs tag (B, K, H, W, T), got "
-                             f"{tuple(tag.shape)} for det {tuple(det.shape)}")
+    check_tag_layout(det, tag, tag_layout)
+    if tag_layout == "hwt":  # one transpose for K1's gather and K4
         tag = tag.permute(0, 1, 4, 2, 3).contiguous()
-    elif tag.dim() != 5 or tag.shape[3:] != hw:
-        raise ValueError(f"tag_layout='thw' needs tag (B, K, T, H, W), got "
-                         f"{tuple(tag.shape)} for det {tuple(det.shape)}")
-    tag_k, loc_k, val_k = top_k_peaks_batch(det, tag, cfg.max_people, cfg.nms_kernel)
+    tag_k, loc_k, val_k = top_k_peaks_batch(det, tag, cfg.max_people, cfg.nms_kernel,
+                                            tag_layout="thw")
     people, n_cl = match_by_tag_batch(tag_k, loc_k, val_k, cfg)
     if with_adjust:
         people = adjust(people, det)
     scores = person_scores(people)
     if with_refine:
-        people = refine_batch(people, det, tag)
+        people = refine_batch(people, det, tag, tag_layout="thw")
     return people, scores, n_cl

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import library  # noqa: F401  registers torch.ops.litepose.*
+from .topk import check_tag_layout
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +93,16 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
 refine_argmax.launches = 0
 
 
+def check_people(people: torch.Tensor, tag: torch.Tensor) -> None:
+    """A ValueError unless people (B, P, K, 3+T) and tag (B, K, T, H, W)
+    agree on B, K and T: a tag in another layout is refused here, where
+    read as (B, K, T, H, W) it would give wrong people."""
+    if (people.dim() != 4 or tag.dim() != 5 or people.shape[0] != tag.shape[0]
+            or people.shape[2] != tag.shape[1] or people.shape[3] != 3 + tag.shape[2]):
+        raise ValueError(f"expected people (B, P, K, 3+T) and tag (B, K, T, H, W), got "
+                         f"{tuple(people.shape)} and {tuple(tag.shape)}")
+
+
 def person_mean_tags(people: torch.Tensor, tag: torch.Tensor):
     """Mean tag of each person over its detected joints.
 
@@ -100,6 +111,7 @@ def person_mean_tags(people: torch.Tensor, tag: torch.Tensor):
     one in index order and the count divides as a tensor, as in the JAX
     ``refine_batch`` (a division by a Python scalar is a product with its
     reciprocal on CUDA)."""
+    check_people(people, tag)
     B, P, K, _ = people.shape
     H, W = tag.shape[-2:]
     sel = people[..., 2] > 0
@@ -115,12 +127,20 @@ def person_mean_tags(people: torch.Tensor, tag: torch.Tensor):
     return s / cnt[..., None], sel
 
 
-def refine_batch(people: torch.Tensor, det: torch.Tensor, tag: torch.Tensor) -> torch.Tensor:
+def refine_batch(people: torch.Tensor, det: torch.Tensor, tag: torch.Tensor,
+                 tag_layout: str = "hwt") -> torch.Tensor:
     """Fill the missing joints of every live person from the penalized
-    argmax (counterpart of ``pallas_refine.refine_batch``, "thw" layout).
+    argmax (counterpart of ``pallas_refine.refine_batch``).
 
-    people (B, P, K, 3+T), det (B, K, H, W), tag (B, K, T, H, W) -> refined
-    people; a slot with no detected joint comes back all zeros."""
+    people (B, P, K, 3+T), det (B, K, H, W), tag (B, K, H, W, T)
+    (``tag_layout="hwt"``, JAX's default) or (B, K, T, H, W) (``"thw"``,
+    K4's own layout: no full-resolution transpose) -> refined people; a
+    slot with no detected joint comes back all zeros.  A tag that is not
+    ``det``'s B, K, H and W in that layout, or not the people's T, raises
+    ValueError."""
+    check_tag_layout(det, tag, tag_layout)
+    if tag_layout == "hwt":
+        tag = tag.permute(0, 1, 4, 2, 3)
     B, P, K, _ = people.shape
     H, W = det.shape[-2:]
     det = det.float().contiguous()

@@ -65,19 +65,45 @@ nms_topk.launches = 0
 nms_topk.loop_launches = 0
 
 
-def top_k_peaks_batch(det: torch.Tensor, tag: torch.Tensor, max_people: int,
-                      nms_kernel: int = 5):
-    """Batched peaks: det (B, K, H, W), tag (B, K, T, H, W) (the "thw"
-    decode layout) -> (tag_k (B, K, M, T) f32, loc_k (B, K, M, 2) f32 x/y,
-    val_k (B, K, M) f32).  Counterpart of ``pallas_topk.top_k_peaks_batch``
-    with ``tag_layout="thw"``."""
+def check_tag_layout(det: torch.Tensor, tag: torch.Tensor, tag_layout: str) -> int:
+    """The tag dimension T of ``tag`` for maps ``det`` (B, K, H, W): a
+    ValueError unless ``tag`` is (B, K, H, W, T) (``tag_layout="hwt"``,
+    the ``core.inference.to_decode_layout`` form and JAX's default) or
+    (B, K, T, H, W) (``"thw"``, the layout of ``make_infer_fn``, which the
+    engine passes) with ``det``'s B, K, H and W."""
+    if tag_layout not in ("hwt", "thw"):
+        raise ValueError(f"tag_layout must be 'hwt' or 'thw', got {tag_layout!r}")
+    if det.dim() != 4:
+        raise ValueError(f"det must be (B, K, H, W), got {tuple(det.shape)}")
     B, K, H, W = det.shape
-    T = tag.shape[2]
+    hwt = tag_layout == "hwt"
+    if tag.dim() != 5 or tuple(tag.shape[:2]) != (B, K) \
+            or tuple(tag.shape[2:4] if hwt else tag.shape[3:]) != (H, W):
+        raise ValueError(f"tag_layout={tag_layout!r} needs tag "
+                         f"{'(B, K, H, W, T)' if hwt else '(B, K, T, H, W)'}, got "
+                         f"{tuple(tag.shape)} for det {tuple(det.shape)}")
+    return int(tag.shape[4] if hwt else tag.shape[2])
+
+
+def top_k_peaks_batch(det: torch.Tensor, tag: torch.Tensor, max_people: int,
+                      nms_kernel: int = 5, tag_layout: str = "hwt"):
+    """Batched peaks: det (B, K, H, W), tag (B, K, H, W, T) (``"hwt"``,
+    JAX's default) or (B, K, T, H, W) (``"thw"``, the decode layout of the
+    engine) -> (tag_k (B, K, M, T) f32, loc_k (B, K, M, 2) f32 x/y, val_k
+    (B, K, M) f32).  Counterpart of ``pallas_topk.top_k_peaks_batch``; the
+    tags are gathered in their own layout, never copied whole."""
+    T = check_tag_layout(det, tag, tag_layout)
+    B, K, H, W = det.shape
     val_k, pos = nms_topk(det, max_people, nms_kernel)
     ind = pos.long()
-    tag_k = torch.gather(
-        tag.reshape(B, K, T, H * W), 3,
-        ind[:, :, None, :].expand(B, K, T, max_people),
-    ).permute(0, 1, 3, 2).float().contiguous()
+    if tag_layout == "thw":
+        tag_k = torch.gather(
+            tag.reshape(B, K, T, H * W), 3,
+            ind[:, :, None, :].expand(B, K, T, max_people),
+        ).permute(0, 1, 3, 2)
+    else:
+        tag_k = torch.gather(tag.reshape(B, K, H * W, T), 2,
+                             ind[..., None].expand(B, K, max_people, T))
+    tag_k = tag_k.float().contiguous()
     loc_k = torch.stack([(ind % W).float(), (ind // W).float()], dim=3)
     return tag_k, loc_k, val_k

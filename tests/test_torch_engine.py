@@ -143,6 +143,11 @@ import tempfile
 import litepose_tpu_torch.ops.library
 import litepose_tpu_torch.tools.demo
 import litepose_tpu_torch.tools.export
+# the profilers, the serving batch sweep and the CUPTI check
+import litepose_tpu_torch.tools.cupti_check
+import litepose_tpu_torch.tools.profile_eval
+import litepose_tpu_torch.tools.profile_model
+import litepose_tpu_torch.tools.sweep_serve
 from litepose_tpu_torch.core.export import export_engine, load_artifact, save_artifact
 from litepose_tpu_torch.utils.summary import model_summary
 from litepose_tpu_torch.utils.vis import draw_skeleton, read_png, write_png
@@ -261,8 +266,10 @@ def test_port_runs_without_jax():
     supernet at a sampled arch and extracts it, builds and runs the three
     baseline families and the super-ResNet from their configs and K1' (its
     twin), exports the serving program and runs the loaded artifact, draws
-    and writes a skeleton as PNG, imports the op library, the summary and
-    the export and demo CLIs, serves on a mesh of two host replicas, joins a
+    and writes a skeleton as PNG, imports the op library, the summary, the
+    export and demo CLIs and the profilers (``profile_model``,
+    ``profile_eval``, ``sweep_serve``, ``cupti_check``), serves on a mesh of two host
+    replicas, joins a
     process group of one rank, decodes maps with the host decoder, reads a
     zipped JPEG, then checks ``sys.modules``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -76,7 +76,7 @@ def test_refine_matches_jax(jref, T, ties):
     want = vmapped(people, det, tag)
     np.testing.assert_array_equal(pallas(people, det, tag), want)
     args = (torch.from_numpy(people), torch.from_numpy(det), torch.from_numpy(tag))
-    np.testing.assert_array_equal(refine_batch(*args).numpy(), want)
+    np.testing.assert_array_equal(refine_batch(*args, tag_layout="thw").numpy(), want)
     np.testing.assert_array_equal(refine(*args).numpy(), want)
 
 
@@ -84,7 +84,8 @@ def test_refine_empty_people(jref):
     vmapped, _ = jref
     _, det, tag = _case(4, B=2, P=4, K=3, H=10, W=10, T=1)
     people = np.zeros((2, 4, 3, 4), np.float32)
-    got = refine_batch(torch.from_numpy(people), torch.from_numpy(det), torch.from_numpy(tag))
+    got = refine_batch(torch.from_numpy(people), torch.from_numpy(det), torch.from_numpy(tag),
+                       tag_layout="thw")
     np.testing.assert_array_equal(got.numpy(), vmapped(people, det, tag))
     assert not got.numpy().any()
 

@@ -159,7 +159,7 @@ def test_top_k_peaks_batch_matches_jax(jref, T):
     det = _planes("non_square")
     B, K, H, W = det.shape
     tag = rng.standard_normal((B, K, T, H, W)).astype(np.float32)
-    got = top_k_peaks_batch(torch.from_numpy(det), torch.from_numpy(tag), M, 5)
+    got = top_k_peaks_batch(torch.from_numpy(det), torch.from_numpy(tag), M, 5, tag_layout="thw")
     want = pallas_topk.top_k_peaks_batch(jnp.asarray(det), jnp.asarray(tag), M, 5,
                                          interpret=True, tag_layout="thw")
     for g, w in zip(got, want):
