@@ -74,6 +74,8 @@ _SIGNATURES = {
                          _INT, _INT, _INT, _PTR),
     # det, is_bf16, out, planes, H, W, r, stream (K5)
     "lp_heatmap_nms": (_PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    # det, is_bf16, planes, H, W, r, info[9] (output): K5's instance and geometry
+    "lp_heatmap_nms_plan": (_PTR, _INT, _INT, _INT, _INT, _INT, _INT_P),
 }
 
 
@@ -114,8 +116,8 @@ def source_hash(extra_flags: tuple = (), flags: tuple = NVCC_FLAGS,
 def build(extra_flags: tuple = ()) -> tuple[Path, float, str]:
     """Compile the sources unless this exact build exists.  ``extra_flags``
     (e.g. ``-DLP_GROUP_CLOCK`` for ``tools/group_clock.py``,
-    ``-DLP_TOPK_CLOCK`` for ``tools/topk_clock.py``) go to every nvcc and
-    into the build's hash.
+    ``-DLP_TOPK_CLOCK`` for ``tools/topk_clock.py``, ``-DLP_NMS_CLOCK`` for
+    ``tools/nms_clock.py``) go to every nvcc and into the build's hash.
 
     Returns (library path, seconds spent compiling, compiler log); seconds
     is 0.0 when an existing build was reused."""

@@ -378,6 +378,34 @@ def heatmap_nms_cuda(det: Tensor, nms_kernel: int) -> Tensor:
     return out
 
 
+K5_INSTANCES = {1: "ring", 2: "tiled"}
+# info[1:] of csrc/heatmap_nms.cu:lp_heatmap_nms_plan
+K5_PLAN_KEYS = ("threads", "smem_bytes", "stage_rows", "stages", "ctas_per_sm", "grid",
+                "rows_per_cta", "ring_budget")
+
+
+def heatmap_nms_plan(det: Tensor, nms_kernel: int, lib=None) -> dict:
+    """The launch K5 makes for ``det`` (N, H, W) on its card: the instance
+    (``"ring"``, or ``"tiled"`` for a row that is no 16-byte multiple, a
+    base off 16 bytes or a row wider than the ring's threads) and its
+    geometry (``csrc/heatmap_nms.cu:lp_heatmap_nms_plan``).  ``lib``: a
+    kernel library other than the loaded one (a clock build, whose
+    registers and so CTAs an SM may differ)."""
+    if det.device.type != "cuda" or det.dim() != 3:
+        raise ValueError(f"heatmap_nms_plan takes a CUDA (N, H, W) tensor, got "
+                         f"{tuple(det.shape)} on {det.device}")
+    N, H, W = det.shape
+    if lib is None:
+        _, lib = _kernels()
+    info = (ctypes.c_int * (1 + len(K5_PLAN_KEYS)))()
+    with torch.cuda.device(det.device):
+        err = lib.lp_heatmap_nms_plan(det.data_ptr(), int(det.dtype == torch.bfloat16), N, H, W,
+                                      nms_kernel // 2, info)
+    if err:
+        raise RuntimeError(f"lp_heatmap_nms_plan: CUDA error {err}")
+    return {"instance": K5_INSTANCES[info[0]], **dict(zip(K5_PLAN_KEYS, info[1:]))}
+
+
 def _heatmap_nms_twin(det: Tensor, nms_kernel: int) -> Tensor:
     from .nms import nms_suppress_ref
 

@@ -31,7 +31,7 @@ KERNEL_FAMILIES = (
     ("K2 group_greedy", ("group_greedy_kernel",)),
     ("K3 group_hungarian", ("group_hungarian_kernel",)),
     ("K4 refine_argmax", ("refine_argmax_tile_kernel", "refine_finalize_kernel")),
-    ("K5 heatmap_nms", ("heatmap_nms_kernel",)),
+    ("K5 heatmap_nms", ("heatmap_nms_ring_kernel", "heatmap_nms_kernel")),
     ("depthwise conv", ("depthwise",)),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "implicit_convolve", "winograd",
                       "fft", "sm90_", "sm80_", "nvjet")),
