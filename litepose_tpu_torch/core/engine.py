@@ -25,6 +25,12 @@ and a stream of its own.  Threads, because the decode waits for the card
 mid-way (the peak counts decide the grouping's work): one host thread
 driving every device would run them in turn.  A shard's people equal,
 bit for bit, the single-device engine's on the same chunk of images.
+
+Under ``torch.profiler`` each call is a tree of ``litepose.engine.*``
+ranges (``utils.spans``): ``call`` (the engine's call number and the batch
+size in its ``args``) over ``upload``, ``forward``, ``decode`` and
+``readback``; on a mesh one ``shard`` a shard, on the shard's thread.
+With no profiler on, a range costs one flag check.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
+import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -42,6 +50,7 @@ from ..data.affine import (get_affine_transform, get_final_preds,
                            get_multi_scale_size, warp_image)
 from ..ops.group import GroupParams, StaticGroupCfg, parse_batch
 from ..parallel.mesh import gather, replicate, shard_batch
+from ..utils.spans import span
 from .inference import InferenceFlags, make_infer_fn, resize_bilinear
 
 
@@ -112,6 +121,8 @@ class PoseEngine:
         self.group_cfg = StaticGroupCfg.from_params(
             group, assignment=config.assignment, topk_method=config.topk_method)
         self.config = config
+        self._calls = itertools.count(1)  # the call numbers in the spans' args
+        self._local = threading.local()  # .call: the call open on this thread
         self._infer: Dict[Tuple[Tuple[int, int], Optional[Tuple[int, int]]], Callable] = {}
         if self.mesh is not None:
             if not isinstance(apply_fn, torch.nn.Module):
@@ -138,12 +149,27 @@ class PoseEngine:
             self._infer[key] = make_infer_fn(self.apply_fn, self.flags, project_hw=out_hw)
         return self._infer[key]
 
+    @contextlib.contextmanager
+    def _call(self, batch: int):
+        """The ``litepose.engine.call`` span of a call of ``batch`` images,
+        unless this thread is inside one of the engine's calls already."""
+        if getattr(self._local, "call", None) is not None:
+            yield
+            return
+        self._local.call = next(self._calls)
+        try:
+            with span("litepose.engine.call", f"call={self._local.call} batch={batch}"):
+                yield
+        finally:
+            self._local.call = None
+
     def _upload(self, images_u8) -> torch.Tensor:
-        x = torch.as_tensor(images_u8)
-        if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[3] != 3:
-            raise ValueError(f"expected uint8 images (B, H, W, 3), got {x.dtype} "
-                             f"{tuple(x.shape)}")
-        return x.to(self.device, non_blocking=True)
+        with span("litepose.engine.upload"):
+            x = torch.as_tensor(images_u8)
+            if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[3] != 3:
+                raise ValueError(f"expected uint8 images (B, H, W, 3), got {x.dtype} "
+                                 f"{tuple(x.shape)}")
+            return x.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
     def _maps(self, images_u8, project: bool):
@@ -151,12 +177,14 @@ class PoseEngine:
         device; projected to (H, W) when ``project``."""
         x = self._upload(images_u8)
         hw = (int(x.shape[1]), int(x.shape[2]))
-        return self.infer_fn(hw, hw if project else None)(x)
+        with span("litepose.engine.forward"):
+            return self.infer_fn(hw, hw if project else None)(x)
 
     @torch.inference_mode()
     def _decode(self, det: torch.Tensor, tag: torch.Tensor):
-        return parse_batch(det, tag, self.group_cfg, self.config.with_adjust,
-                           self.config.with_refine, tag_layout="thw")
+        with span("litepose.engine.decode"):
+            return parse_batch(det, tag, self.group_cfg, self.config.with_adjust,
+                               self.config.with_refine, tag_layout="thw")
 
     def run_batch(self, images_u8):
         """uint8 (B, H, W, 3) images -> (det, tag, people, scores, counts),
@@ -164,6 +192,11 @@ class PoseEngine:
         people (B, P, K, 3+T) in heatmap coordinates (the maps are projected
         to (H, W) when ``project2image``).  On a mesh the shards' outputs
         are gathered on its first device."""
+        with self._call(len(images_u8)):
+            return self._run_batch(images_u8)
+
+    def _run_batch(self, images_u8):
+        """``run_batch`` inside a call's span."""
         if self.mesh is not None:
             parts = [f.result() for f in self._submit(self._shard_batch, images_u8)]
             return tuple(gather([p[i] for p in parts]) for i in range(5))
@@ -173,10 +206,14 @@ class PoseEngine:
     # -- the mesh ---------------------------------------------------------------
 
     def _submit(self, fn: Callable, images_u8) -> List[Future]:
-        """``fn(shard index, shard)`` for each equal shard of the batch, on
-        the shard's thread; raises when the batch does not divide."""
+        """``fn(shard index, call number, shard)`` for each equal shard of
+        the batch, on the shard's thread; raises when the batch does not
+        divide.  The call number is that of the call open on this thread,
+        else a new one."""
         shards = shard_batch(images_u8, len(self.mesh))
-        return [t.submit(fn, i, x) for i, (t, x) in enumerate(zip(self._threads, shards))]
+        call = getattr(self._local, "call", None) or next(self._calls)
+        return [t.submit(fn, i, call, x)
+                for i, (t, x) in enumerate(zip(self._threads, shards))]
 
     def _on_shard(self, i: int):
         """The shard's device and stream made current on this thread."""
@@ -186,20 +223,23 @@ class PoseEngine:
             stack.enter_context(torch.cuda.stream(self._streams[i]))
         return stack
 
-    def _shard_batch(self, i: int, images_u8):
-        """Shard ``i``'s ``run_batch``, its stream drained so that other
-        threads and streams may read the outputs."""
-        with self._on_shard(i):
-            out = self._shards[i].run_batch(images_u8)
+    def _shard_batch(self, i: int, call: int, images_u8, to_host: bool = False):
+        """Shard ``i``'s ``run_batch`` for call number ``call``, its stream
+        drained so that other threads and streams may read the outputs;
+        with ``to_host``, its people on the host (``_host_people``)."""
+        with span("litepose.engine.shard", f"call={call} shard={i}"), self._on_shard(i):
+            out = self._shards[i]._run_batch(images_u8)
             if self._streams[i] is not None:
                 self._streams[i].synchronize()
+            if to_host:
+                det, _, people, scores, n = out
+                return _host_people(det, people, scores, n)
             return out
 
-    def _shard_people(self, i: int, images_u8):
+    def _shard_people(self, i: int, call: int, images_u8):
         """Shard ``i``'s people on the host: (heatmap (h, w), people,
         scores, counts as numpy)."""
-        det, _, people, scores, n = self._shard_batch(i, images_u8)
-        return _host_people(det, people, scores, n)
+        return self._shard_batch(i, call, images_u8, to_host=True)
 
     @staticmethod
     def _gather_people(futures: Sequence[Future]):
@@ -218,10 +258,11 @@ class PoseEngine:
         shape = tuple(np.shape(images_u8))
         if len(shape) != 4 or shape[1:] != (size, size, 3):
             raise ValueError(f"expected images (B, {size}, {size}, 3), got {shape}")
-        if self.mesh is not None:
-            return self._gather_people(self._submit(self._shard_people, images_u8))[1:]
-        _, _, people, scores, n = self.run_batch(images_u8)
-        return people.cpu().numpy(), scores.cpu().numpy(), n.cpu().numpy()
+        with self._call(shape[0]):
+            if self.mesh is not None:
+                return self._gather_people(self._submit(self._shard_people, images_u8))[1:]
+            det, _, people, scores, n = self.run_batch(images_u8)
+            return _host_people(det, people, scores, n)[1:]
 
     # -- the eval protocol ----------------------------------------------------
 
@@ -253,12 +294,17 @@ class PoseEngine:
         if self.mesh is not None:
             with self._on_shard(0):
                 return self._shards[0].process(image_rgb_u8)
+        with self._call(1):
+            return self._process(image_rgb_u8)
+
+    def _process(self, image_rgb_u8: np.ndarray) -> Result:
+        """``process`` on one device, inside a call's span."""
         scales = sorted(self.config.scale_factors, reverse=True)
         if scales == [1.0]:
             img, center, scale = self._warp(image_rgb_u8, 1.0)
             det, _, people, scores, n = self.run_batch(img[None])
-            return self._finalize_one(people[0].cpu().numpy(), scores[0].cpu().numpy(),
-                                      int(n[0]), center, scale, tuple(det.shape[-2:]))
+            hm_hw, people, scores, n = _host_people(det, people, scores, n)
+            return self._finalize_one(people[0], scores[0], int(n[0]), center, scale, hm_hw)
         if len(scales) > 1 and 1.0 not in scales:
             raise ValueError(f"multi-scale eval takes its tags at scale 1.0, "
                              f"got scales {scales}")
@@ -274,7 +320,9 @@ class PoseEngine:
         with torch.inference_mode():
             for s in scales:
                 img, center, scale = self._warp(image_rgb_u8, s)
-                heat, tag = self.infer_fn(img.shape[:2], project_hw)(self._upload(img[None]))
+                x = self._upload(img[None])
+                with span("litepose.engine.forward"):
+                    heat, tag = self.infer_fn(img.shape[:2], project_hw)(x)
                 if accum_hw is None:
                     accum_hw = tuple(heat.shape[-2:])
                 if tuple(heat.shape[-2:]) != accum_hw:
@@ -288,8 +336,8 @@ class PoseEngine:
                     tag_keep = tag
             heat = heat_sum / torch.full((), float(len(scales)), device=heat_sum.device)
         people, scores, n = self._decode(heat, tag_keep)
-        return self._finalize_one(people[0].cpu().numpy(), scores[0].cpu().numpy(),
-                                  int(n[0]), center, scale, accum_hw)
+        _, people, scores, n = _host_people(heat, people, scores, n)
+        return self._finalize_one(people[0], scores[0], int(n[0]), center, scale, accum_hw)
 
     def process_indexed(self, shapes: Sequence[Tuple[int, int]],
                         load_fn: Callable[[int], np.ndarray],
@@ -382,5 +430,8 @@ class PoseEngine:
 
 def _host_people(det: torch.Tensor, people: torch.Tensor, scores: torch.Tensor,
                  n: torch.Tensor):
-    """A batch's (heatmap (h, w), people, scores, counts) on the host."""
-    return tuple(det.shape[-2:]), people.cpu().numpy(), scores.cpu().numpy(), n.cpu().numpy()
+    """A batch's (heatmap (h, w), people, scores, counts) on the host: the
+    one read-back of every path, which waits for the device's work."""
+    with span("litepose.engine.readback"):
+        return (tuple(det.shape[-2:]), people.cpu().numpy(), scores.cpu().numpy(),
+                n.cpu().numpy())

@@ -141,14 +141,25 @@ def trace_kernels(fn: Callable, iters: int) -> Tuple[Dict[str, List[float]], flo
             fn()
         end.record()
         end.synchronize()
+    return kernel_rows(prof.events()), start.elapsed_time(end)
+
+
+def kernel_rows(events) -> Dict[str, List[float]]:
+    """{kernel name: [events, device ms]} of a trace's rows on the card.
+    The card-side mirrors of ``record_function`` ranges (the engine's
+    ``litepose.engine.*`` spans) are left out: they run no kernel."""
+    from torch.autograd import DeviceType
+
     rows: Dict[str, List[float]] = {}
-    for e in prof.key_averages():
-        total = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if total > 0:
-            row = rows.setdefault(e.key, [0, 0.0])
-            row[0] += e.count
-            row[1] += total / 1e3
-    return rows, start.elapsed_time(end)
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or ms <= 0:
+            continue
+        row = rows.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += ms
+    return rows
 
 
 def by_family(rows: Dict[str, List[float]], iters: int) -> Dict[str, float]:
