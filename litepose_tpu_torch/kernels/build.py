@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
-           "refine_argmax.cu", "heatmap_nms.cu")
+           "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu")
 HEADERS = ("group_common.cuh", "nms_common.cuh")
 LIB_NAME = "liblitepose_kernels.so"
 
@@ -76,6 +76,9 @@ _SIGNATURES = {
     "lp_heatmap_nms": (_PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _PTR),
     # det, is_bf16, planes, H, W, r, info[9] (output): K5's instance and geometry
     "lp_heatmap_nms_plan": (_PTR, _INT, _INT, _INT, _INT, _INT, _INT_P),
+    # x, w, bias, out, B, C, H, W, k, stride, act, stream
+    "lp_depthwise_conv": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                          _PTR),
 }
 
 

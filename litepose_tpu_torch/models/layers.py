@@ -16,6 +16,15 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
   * scale`` in fp32, only then cast to the compute dtype; the bias
   ``beta - mean * inv`` is added in the activation dtype.  Folding in
   another order gives other bf16 weights than the JAX model.
+* At bf16 eval the depthwise conv of a folded pair (k 3, 5 or 7, stride 1
+  or 2, padding k // 2) goes to the port's own kernel
+  (``ops.depthwise.depthwise_conv``, ``csrc/depthwise_conv.cu``), which
+  adds the bias and applies the ReLU6 / ReLU after it in its epilogue: one
+  launch where ``F.conv2d``, the bias add and the clamp were three.  It
+  rounds as that sequence does; only the order of the fp32 sum of a
+  window's products differs.  On the CPU the op runs that sequence itself,
+  so a CPU forward keeps its bits; fp32, training and dense convs keep
+  ``F.conv2d``.
 * In training mode every BN is a plain ``nn.BatchNorm2d`` (batch
   statistics, momentum 0.1, eps 1e-5), as ``layers.batch_norm`` is; under
   a process group of more than one rank it takes the global statistics of
@@ -33,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import make_divisible
+from ..ops.depthwise import KERNELS, STRIDES, activation, depthwise_conv
 from ..parallel.mesh import sync_batch_stats, world
 
 BN_EPS = 1e-5
@@ -77,21 +87,43 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def fused_depthwise(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether an eval ``conv_bn`` of ``conv`` on ``x`` (already in the
+    compute dtype) takes the depthwise kernel: a bf16 depthwise conv with a
+    square kernel of 3, 5 or 7, stride 1 or 2 both ways, padding k // 2,
+    no dilation, and no gradient to carry to ``x`` (the op has none)."""
+    k = conv.kernel_size[0]
+    return (x.dtype == torch.bfloat16
+            and conv.groups == conv.in_channels == conv.out_channels
+            and conv.kernel_size == (k, k) and k in KERNELS
+            and conv.stride[0] == conv.stride[1] and conv.stride[0] in STRIDES
+            and conv.padding == (k // 2, k // 2) and conv.dilation == (1, 1)
+            and not (x.requires_grad and torch.is_grad_enabled()))
+
+
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-            dtype: torch.dtype) -> torch.Tensor:
-    """conv followed by BN: batch statistics in training; at eval the
-    weights ``LitePose.fold_bn_`` folded once, else folded here."""
+            dtype: torch.dtype, act: str = "none") -> torch.Tensor:
+    """conv followed by BN, then ``act`` ("none", "relu6" as ``torch.clamp``,
+    "relu"): batch statistics in training; at eval the weights
+    ``LitePose.fold_bn_`` folded once, else folded here, and a depthwise
+    conv in bf16 as one kernel with its bias and activation
+    (``fused_depthwise``)."""
+    # each step rebinds y, so no step holds the tensor before it
     if bn.training:
         y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
                      conv.padding, conv.dilation, conv.groups)
-        return bn_train(y, bn)
+        y = bn_train(y, bn)
+        return activation(y, act)
     if hasattr(conv, "folded_w"):
         w, bias = conv.folded_w, conv.folded_b
     else:
         w, bias = fold_bn(conv, bn, dtype)
-    y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding,
-                 conv.dilation, conv.groups)
-    return y + bias.to(y.dtype)[:, None, None]
+    x = x.to(dtype)
+    if fused_depthwise(conv, x):
+        return depthwise_conv(x, w, bias, conv.stride[0], act)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    y = y + bias.to(y.dtype)[:, None, None]
+    return activation(y, act)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -162,8 +194,7 @@ class ConvBNReLU6(nn.Sequential):
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv_bn(x, self[0], self[1], dtype)
-        return torch.clamp(y, 0.0, 6.0) if len(self) > 2 else y
+        return conv_bn(x, self[0], self[1], dtype, "relu6" if len(self) > 2 else "none")
 
 
 class InvBottleneck(nn.Module):
@@ -197,7 +228,7 @@ class SepConv2d(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.relu(conv_bn(x, self.conv[0], self.conv[1], dtype))
+        y = conv_bn(x, self.conv[0], self.conv[1], dtype, "relu")
         return conv(y, self.conv[3], dtype)
 
 

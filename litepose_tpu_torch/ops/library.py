@@ -1,4 +1,5 @@
-"""The decode kernels as registered torch ops, ``torch.ops.litepose.*``.
+"""The port's kernels as registered torch ops, ``torch.ops.litepose.*``:
+the decode kernels and the depthwise conv of the forward.
 
 A ctypes call is opaque to ``torch.export``; a registered op lands in an
 exported program as one graph node, which a loaded artifact dispatches by
@@ -16,12 +17,13 @@ three implementations:
   wrapper's ``launches``
   (``ops.topk.nms_topk.launches`` / ``.loop_launches``,
   ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
-  ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``),
+  ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``,
+  ``ops.depthwise.depthwise_conv.launches``),
   so an artifact's launches count too (under a lock: shard threads launch
   at once).  The kernels are built and loaded at the first launch, by one
   thread.  A failed build or launch raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
-  ``refine_argmax_ref``, ``nms_suppress_ref``);
+  ``refine_argmax_ref``, ``nms_suppress_ref``, ``depthwise_conv_ref``);
 - fake: the output shapes and dtypes, for tracing.
 
 =====================  ===  ==========================  ================================
@@ -33,12 +35,14 @@ op                     #    kernel                      TPU kernel
 ``group_hungarian``    K3   ``csrc/group_hungarian.cu`` ``ops/pallas_group.py:56``
 ``refine_argmax``      K4   ``csrc/refine_argmax.cu``   ``ops/pallas_refine.py:38``
 ``heatmap_nms``        K5   ``csrc/heatmap_nms.cu``     ``ops/pallas_nms.py:27``
+``depthwise_conv``     K6   ``csrc/depthwise_conv.cu``  none (``lax.conv_general_dilated``)
 =====================  ===  ==========================  ================================
 
 The grouping configuration crosses as plain arguments (the joint order as
 ``int[]``, thresholds as floats that reach the kernel as ``c_float``).
 Shape and dtype checks stay in the wrappers (``ops/topk.py``,
-``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``); what depends on the
+``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``,
+``ops/depthwise.py``); what depends on the
 card (limits of a kernel's geometry, contiguity, alignment) is checked
 here.  This module imports nothing of the package at import time, so a
 process that loads an artifact imports it, and through it the twins,
@@ -73,6 +77,7 @@ SCHEMAS = {
     "group_hungarian": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
     "refine_argmax": "(Tensor need, Tensor prev, Tensor det, Tensor tag) -> Tensor",
     "heatmap_nms": "(Tensor det, int nms_kernel) -> Tensor",
+    "depthwise_conv": "(Tensor x, Tensor w, Tensor bias, int stride, str act) -> Tensor",
 }
 OPS = tuple(SCHEMAS)
 
@@ -417,3 +422,46 @@ def _heatmap_nms_fake(det: Tensor, nms_kernel: int) -> Tensor:
 
 
 _register("heatmap_nms", heatmap_nms_cuda, _heatmap_nms_twin, _heatmap_nms_fake)
+
+
+# -- K6: the depthwise conv of a folded conv + BN, bias and activation fused ---
+
+
+DEPTHWISE_ACTS = ("none", "relu6", "relu")  # kActNone, kActRelu6, kActRelu in the kernel
+
+
+@_on_its_device
+def depthwise_conv_cuda(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+    """K6: x (B, C, H, W) bf16, w (C, 1, k, k) bf16, bias (C) fp32 ->
+    act(conv + bias) (B, C, Ho, Wo) bf16, in one launch."""
+    from .depthwise import depthwise_conv as wrapper
+
+    _contiguous("x, w and bias", x, w, bias)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or bias.dtype != torch.float32:
+        raise TypeError(f"the K6 kernel takes bf16 x and w and an fp32 bias, got {x.dtype}, "
+                        f"{w.dtype} and {bias.dtype}")
+    B, C, H, W = x.shape
+    build, lib = _kernels()
+    out = torch.empty((B, C, (H - 1) // stride + 1, (W - 1) // stride + 1), dtype=x.dtype,
+                      device=x.device)
+    if out.numel():
+        err = lib.lp_depthwise_conv(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                    B, C, H, W, w.shape[-1], stride, DEPTHWISE_ACTS.index(act),
+                                    _stream(x))
+        build.check(err, "depthwise_conv")
+        count_launch(wrapper)
+    return out
+
+
+def _depthwise_conv_twin(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+    from .depthwise import depthwise_conv_ref
+
+    return depthwise_conv_ref(x, w, bias, stride, act)
+
+
+def _depthwise_conv_fake(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+    B, C, H, W = x.shape
+    return x.new_empty((B, C, (H - 1) // stride + 1, (W - 1) // stride + 1))
+
+
+_register("depthwise_conv", depthwise_conv_cuda, _depthwise_conv_twin, _depthwise_conv_fake)

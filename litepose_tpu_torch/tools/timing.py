@@ -7,9 +7,10 @@
   number).
 - ``trace_kernels`` / ``kernel_families`` / ``breakdown``: the device time
   of the kernels a call runs, from ``torch.profiler`` (CUPTI), summed by
-  ``KERNEL_FAMILIES``; each port kernel (K1-K5, K1') is a family of its own
-  and ``breakdown`` holds each against the launch count its wrapper kept
-  over the traced calls.
+  ``KERNEL_FAMILIES``; each port kernel (K1-K5, K1') is a family of its own,
+  the depthwise conv K6 is counted in "depthwise conv" (with PyTorch's,
+  which a bf16 eval forward no longer launches), and ``breakdown`` holds
+  each against the launch count its wrapper kept over the traced calls.
 
 Nothing here runs at import: ``torch.profiler`` is imported by the calls
 that trace.
@@ -47,6 +48,7 @@ OTHER = "other"
 def port_launches() -> Dict[str, int]:
     """Each port kernel's family -> its wrapper's launch count so far
     (``ops.library.count_launch`` adds one where a wrapper launches)."""
+    from ..ops.depthwise import depthwise_conv
     from ..ops.group import group_greedy, group_hungarian
     from ..ops.nms import nms_suppress
     from ..ops.refine import refine_argmax
@@ -55,7 +57,8 @@ def port_launches() -> Dict[str, int]:
     return {"K1 nms_topk": nms_topk.launches, "K1' nms_topk_loop": nms_topk.loop_launches,
             "K2 group_greedy": group_greedy.launches,
             "K3 group_hungarian": group_hungarian.launches,
-            "K4 refine_argmax": refine_argmax.launches, "K5 heatmap_nms": nms_suppress.launches}
+            "K4 refine_argmax": refine_argmax.launches, "K5 heatmap_nms": nms_suppress.launches,
+            "depthwise conv": depthwise_conv.launches}
 
 
 def family_of(kernel_name: str) -> str:

@@ -8,9 +8,9 @@ its numbers are host-clock times of the plain twins and are not checked.
 ``sweep_serve`` goes on past a batch that runs out of device memory and
 fails on any other error.  The kernel families put each port kernel's
 CUDA kernels in a family of its own.  On the card (marked ``cuda``)
-``profile_eval``'s pieces sum to its whole step within the 15% that
-``chip_smoke.py`` phase 20 holds them to, and every piece's port kernel
-shows device time."""
+``profile_eval``'s pieces in the step sum to its whole step within the
+15% that ``chip_smoke.py`` phase 20 holds them to, at b8 (host-bound)
+and b32, and every piece's port kernel shows device time."""
 
 import math
 
@@ -70,7 +70,10 @@ def test_profile_eval_runs_every_piece(small):
                   "glue (infer - forward)", "sum of pieces", "scheduling slack"):
         assert label in text, label
     assert _timed(out)
-    assert out["sum_ms"] == pytest.approx(
+    assert list(out["in_step"]) == list(profile_eval.PIECES)
+    assert all(ms > 0 for ms in out["in_step"].values()), out["in_step"]
+    assert out["sum_ms"] == pytest.approx(sum(out["in_step"].values()))
+    assert out["alone_sum_ms"] == pytest.approx(
         sum(out["sections"][p]["ms"] for p in profile_eval.PIECES))
     assert out["slack_ms"] == pytest.approx(out["total_ms"] - out["sum_ms"])
 
@@ -148,6 +151,8 @@ def test_cupti_check_traces_only_the_card():
      "K4 refine_argmax"),
     ("void heatmap_nms_kernel<__nv_bfloat16, 2>(__nv_bfloat16 const*)", "K5 heatmap_nms"),
     ("void at::native::conv_depthwise2d_forward_kernel<3, c10::BFloat16, int>", "depthwise conv"),
+    ("void (anonymous namespace)::depthwise_conv_kernel<7, 1>(unsigned short const*)",
+     "depthwise conv"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "cuDNN / GEMM"),
     ("nvjet_tst_256x96_64x4_1x1_v_ssched_bz_coopA_NNT", "cuDNN / GEMM"),
     ("void at::native::(anonymous namespace)::upsample_bilinear2d_out_frame<float, float>",
@@ -181,8 +186,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_profile_eval_pieces_sum_to_the_step_on_card(cuda):
-    out = profile_eval.main(["--batch", "8", "--rounds", "3"], log=print)
+@pytest.mark.parametrize("batch", [8, 32])
+def test_profile_eval_pieces_sum_to_the_step_on_card(cuda, batch):
+    # b8: the host sets the step's pace; b32 (the eval protocol's batch): the card does
+    out = profile_eval.main(["--batch", str(batch), "--rounds", "3"], log=print)
     assert abs(out["slack_ms"]) <= 0.15 * out["total_ms"], out
     sections = out["sections"]
     for piece, family in ((profile_eval.PIECES[1], "K1 nms_topk"),
