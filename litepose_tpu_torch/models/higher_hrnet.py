@@ -22,9 +22,23 @@ reference state dict loads with ``strict=True`` (``models.torch_convert``).
 The reference numbers the transitions by the stage they leave
 (``transition1`` feeds ``stage2``); the JAX pytree by the stage they feed.
 
-Numerics follow the JAX module, not LitePose's: every BN stays unfolded at
-eval, a per-channel ``x * inv + bias`` in the activation dtype after the
-conv (``layers.batch_norm``); convolutions run in ``compute_dtype``.
+Numerics: convolutions run in ``compute_dtype``.  At eval the model folds
+its BNs as LitePose does (``layers.FoldsBN``): every conv followed by a BN
+(``_conv_bn_pairs``: stem, Bottleneck, BasicBlock, downsample and every
+``ConvBN`` of the transitions, fuse layers and 0-block branches) runs as
+``layers.conv_bn``, the weight folded once in the JAX order and the bias
+added after the conv, then its activation.  The head's transposed conv
+keeps its BN unfolded (``layers.batch_norm``).  The folded biases, and
+the final layers' and the transposed conv's weights (``cast_w``), are
+stored once in ``compute_dtype`` at fold time, so the forward casts none.
+On a card the eval forward runs channels-last, cuDNN's layout, and the
+stored weights are kept so.  In training every BN takes batch statistics,
+as JAX's.
+EfficientHRNet shares the stages and the head but never folds: a pair with
+no folded weight keeps the BN unfolded after its conv, as the JAX module.
+
+The forward opens ``litepose.hrnet.*`` spans (``utils/spans.py``): the
+stem, each transition, each module's branches and its fuse, and the head.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils.spans import span
 from . import layers as L
 
 
@@ -103,10 +118,21 @@ def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1, bias: bool = False)
     return nn.Conv2d(cin, cout, k, stride, k // 2, bias=bias)
 
 
-def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-            dtype: torch.dtype) -> torch.Tensor:
-    """conv, then the BN unfolded (``_convbn`` before its activation)."""
-    return L.batch_norm(L.conv(x, conv, dtype), bn)
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+            act: str = "none") -> torch.Tensor:
+    """conv, BN, then ``act`` ("none", "relu6", "relu"): a pair that
+    ``HigherHRNet.fold_bn_`` folded as ``layers.conv_bn``; an unfolded one
+    (training, EfficientHRNet) as the JAX ``_convbn``, the BN after the
+    conv (``layers.batch_norm``)."""
+    if hasattr(conv, "folded_w"):
+        return L.conv_bn(x, conv, bn, dtype, act)
+    return L.activation(L.batch_norm(L.conv(x, conv, dtype), bn), act)
+
+
+def _card_layout(w: torch.Tensor) -> torch.Tensor:
+    """A stored weight in the layout the eval forward runs in: channels-last
+    on a card, as it is elsewhere."""
+    return w.contiguous(memory_format=torch.channels_last) if w.is_cuda else w
 
 
 class ConvBN(nn.Sequential):
@@ -120,10 +146,7 @@ class ConvBN(nn.Sequential):
         self.act = act
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv_bn(x, self[0], self[1], dtype)
-        if self.act == "relu6":
-            return torch.clamp(y, 0.0, 6.0)
-        return torch.relu(y) if self.act == "relu" else y
+        return conv_bn(x, self[0], self[1], dtype, self.act or "none")
 
 
 def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
@@ -146,9 +169,12 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, cout, stride)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.relu(conv_bn(x, self.conv1, self.bn1, dtype))
+        y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
         y = conv_bn(y, self.conv2, self.bn2, dtype)
         return torch.relu(y + _residual(x, self.downsample, dtype))
+
+    def pairs(self):
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2)]
 
 
 class Bottleneck(nn.Module):
@@ -164,10 +190,13 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, cout, stride)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.relu(conv_bn(x, self.conv1, self.bn1, dtype))
-        y = torch.relu(conv_bn(y, self.conv2, self.bn2, dtype))
+        y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
+        y = conv_bn(y, self.conv2, self.bn2, dtype, "relu")
         y = conv_bn(y, self.conv3, self.bn3, dtype)
         return torch.relu(y + _residual(x, self.downsample, dtype))
+
+    def pairs(self):
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
 
 
 class HighResolutionModule(nn.Module):
@@ -218,16 +247,21 @@ class HighResolutionModule(nn.Module):
             self.fuse_layers = nn.ModuleList(rows)
 
     def forward(self, xs: List[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
-        ys = []
-        for branch, x in zip(self.branches, xs):
-            if isinstance(branch, ConvBN):
-                ys.append(branch(x, dtype))
-            else:
-                for block in branch:
-                    x = block(x, dtype)
-                ys.append(x)
+        with span("litepose.hrnet.branches"):
+            ys = []
+            for branch, x in zip(self.branches, xs):
+                if isinstance(branch, ConvBN):
+                    ys.append(branch(x, dtype))
+                else:
+                    for block in branch:
+                        x = block(x, dtype)
+                    ys.append(x)
         if self.fuse_layers is None:
             return ys
+        with span("litepose.hrnet.fuse"):
+            return self._fuse(ys, dtype)
+
+    def _fuse(self, ys: List[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
         fused = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
@@ -305,10 +339,12 @@ def apply_higher_head(final_layers: nn.ModuleList, deconv_layers: nn.ModuleList,
     return outputs
 
 
-class HigherHRNet(nn.Module):
+class HigherHRNet(L.FoldsBN, nn.Module):
     """Forward: ``x`` (B, 3, H, W) normalized images -> [(B, J+T, H/4, W/4),
     (B, J, H/2, W/2)] in ``out_dtype``.  ``compute_dtype``: the conv
-    compute type (bf16 serving, fp32 for parity), the JAX ``Policy``."""
+    compute type (bf16 serving, fp32 for parity), the JAX ``Policy``.
+    ``eval()`` folds the BNs (``fold_bn_``); after writing weights into a
+    model in eval mode, call ``fold_bn_()`` again."""
 
     def __init__(self, spec: HRNetSpec, compute_dtype: torch.dtype = torch.bfloat16,
                  out_dtype: torch.dtype = torch.float32):
@@ -338,6 +374,45 @@ class HigherHRNet(nn.Module):
             spec.deconv_channels[:spec.num_deconvs], spec.deconv_kernels,
             spec.deconv_num_basic_blocks, spec.cat_output)
 
+    def _conv_bn_pairs(self):
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2)]
+        for m in self.modules():
+            if isinstance(m, (BasicBlock, Bottleneck)):
+                pairs += m.pairs()
+                if m.downsample is not None:
+                    pairs.append((m.downsample[0], m.downsample[1]))
+            elif isinstance(m, ConvBN):
+                pairs.append((m[0], m[1]))
+        return pairs
+
+    def _cast_convs(self) -> List[nn.Module]:
+        """The convs with no BN to fold whose weights ``fold_bn_`` stores in
+        ``compute_dtype``: the final layers and the head's transposed convs."""
+        return list(self.final_layers) + [stage[0][0] for stage in self.deconv_layers]
+
+    def fold_bn_(self):
+        """``FoldsBN.fold_bn_``, with each folded bias stored in
+        ``compute_dtype`` and the final layers' and transposed convs' weights
+        stored in it once (``cast_w``): the bits a cast at each call gives,
+        with no cast left in the forward.  On a card the weights are stored
+        channels-last, the layout the eval forward runs in there."""
+        super().fold_bn_()
+        dt = self.compute_dtype
+        for conv, _ in self._conv_bn_pairs():
+            conv.folded_w = _card_layout(conv.folded_w)
+            conv.folded_b = conv.folded_b.to(dt)
+        for m in self._cast_convs():
+            m.register_buffer("cast_w", _card_layout(m.weight.detach().to(dt, copy=True)),
+                              persistent=False)
+        return self
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode:
+            for m in self._cast_convs():
+                m._buffers.pop("cast_w", None)
+        return self
+
     @staticmethod
     def _transition(pre: List[int], cur: List[int]) -> nn.ModuleList:
         """None where a branch passes as it is, a conv-BN-ReLU where its
@@ -355,16 +430,24 @@ class HigherHRNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         dt = self.compute_dtype
-        y = torch.relu(conv_bn(x, self.conv1, self.bn1, dt))
-        y = torch.relu(conv_bn(y, self.conv2, self.bn2, dt))
-        for block in self.layer1:
-            y = block(y, dt)
+        if x.is_cuda and not self.training:
+            # cuDNN's convolutions are NHWC: in NCHW each would transpose its
+            # input and output (two more launches, and about a quarter of the
+            # W48 forward's device time on an H100); outputs stay channels-last
+            x = x.contiguous(memory_format=torch.channels_last)
+        with span("litepose.hrnet.stem"):
+            y = conv_bn(x, self.conv1, self.bn1, dt, "relu")
+            y = conv_bn(y, self.conv2, self.bn2, dt, "relu")
+            for block in self.layer1:
+                y = block(y, dt)
         ys = [y]
         for n in (2, 3, 4):
-            ys = apply_transition(getattr(self, f"transition{n - 1}"), ys, dt)
+            with span("litepose.hrnet.transition"):
+                ys = apply_transition(getattr(self, f"transition{n - 1}"), ys, dt)
             ys = run_stage(getattr(self, f"stage{n}"), ys, dt)
-        return apply_higher_head(self.final_layers, self.deconv_layers, self.spec.cat_output,
-                                 ys[0], dt, self.out_dtype)
+        with span("litepose.hrnet.head"):
+            return apply_higher_head(self.final_layers, self.deconv_layers,
+                                     self.spec.cat_output, ys[0], dt, self.out_dtype)
 
 
 def apply_transition(layers: nn.ModuleList, prev: List[torch.Tensor],

@@ -135,9 +135,17 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return x * inv.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
 
 
+def weight(m: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``m``'s weight in ``dtype``: at eval the copy a model's ``fold_bn_``
+    stored (``cast_w``, HigherHRNet's head) where it is in ``dtype``, else
+    cast now."""
+    w = None if m.training else m._buffers.get("cast_w")
+    return w if w is not None and w.dtype == dtype else m.weight.to(dtype)
+
+
 def conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """A conv with no BN after it (the pointwise conv of ``SepConv2d``)."""
-    return F.conv2d(x.to(dtype), m.weight.to(dtype), None, m.stride,
+    return F.conv2d(x.to(dtype), weight(m, dtype), None, m.stride,
                     m.padding, m.dilation, m.groups)
 
 
@@ -151,7 +159,7 @@ def conv_bias(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor
 class FoldsBN:
     """``fold_bn_`` and ``train`` for an ``nn.Module`` whose ``conv_bn``
     pairs ``_conv_bn_pairs()`` lists and whose convs run in
-    ``compute_dtype`` (LitePose, LitePose-ResNet)."""
+    ``compute_dtype`` (LitePose, LitePose-ResNet, HigherHRNet)."""
 
     def fold_bn_(self):
         """Fold every conv's eval BN into it once, in ``compute_dtype``
@@ -247,16 +255,15 @@ def make_deconv(cin: int, cout: int, k: int) -> nn.ConvTranspose2d:
 
 def deconv(x: torch.Tensor, m: nn.ConvTranspose2d,
            dtype: torch.dtype) -> torch.Tensor:
-    return F.conv_transpose2d(x.to(dtype), m.weight.to(dtype), None,
+    return F.conv_transpose2d(x.to(dtype), weight(m, dtype), None,
                               m.stride, m.padding, m.output_padding)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Each pixel of (B, C, H, W) repeated ``factor`` times along H and W
-    (``jnp.repeat`` on both axes)."""
-    b, c, h, w = x.shape
-    return x[:, :, :, None, :, None].expand(b, c, h, factor, w, factor).reshape(
-        b, c, h * factor, w * factor)
+    """Each pixel of (B, C, H, W) repeated ``factor`` (a power of two)
+    times along H and W (``jnp.repeat`` on both axes), in ``x``'s memory
+    layout."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
 def fan_in_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:

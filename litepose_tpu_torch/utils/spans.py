@@ -1,4 +1,5 @@
-"""Named ranges on ``torch.profiler``'s own clock, for the serving engine.
+"""Named ranges on ``torch.profiler``'s own clock, for the serving engine
+and the sections of a HigherHRNet forward.
 
 ``span(name, args)`` is ``torch.profiler.record_function(name, args)``
 while a profiler is recording, and one shared no-op context otherwise:
@@ -8,7 +9,8 @@ clock of its host ops and CUPTI rows, nest as the calls nest, and are
 written out with the rest of the trace (``export_chrome_trace``); nothing
 here keeps or exports them.
 
-``SPANS`` names every span the port opens (``core/engine.py``):
+``SPANS`` names every span the port opens: ``ENGINE_SPANS``
+(``core/engine.py``) and ``HRNET_SPANS`` (``models/higher_hrnet.py``).
 
 - ``litepose.engine.call``: one engine call, the root; ``args`` holds the
   engine's call number and the batch size;
@@ -20,7 +22,16 @@ here keeps or exports them.
 - ``litepose.engine.readback``: the people, scores and counts copied to
   the host, which first waits for the device's work;
 - ``litepose.engine.shard``: one shard of a mesh call on its thread;
-  ``args`` holds the call number and the shard index.
+  ``args`` holds the call number and the shard index;
+- ``litepose.hrnet.stem``: the two stride-2 conv-BN-ReLUs and ``layer1``;
+- ``litepose.hrnet.transition``: one transition (three a forward);
+- ``litepose.hrnet.branches``: one module's parallel branches;
+- ``litepose.hrnet.fuse``: one module's exchange (the 1x1 conv-BNs with
+  their nearest upsampling, the strided 3x3 chains, the sums and ReLUs);
+- ``litepose.hrnet.head``: the final layers and the deconv stage.
+
+EfficientHRNet's stages are HigherHRNet's modules, so its forward opens
+``branches`` and ``fuse`` too.
 """
 
 from __future__ import annotations
@@ -30,8 +41,11 @@ import contextlib
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
 
-SPANS = ("litepose.engine.call", "litepose.engine.upload", "litepose.engine.forward",
-         "litepose.engine.decode", "litepose.engine.readback", "litepose.engine.shard")
+ENGINE_SPANS = ("litepose.engine.call", "litepose.engine.upload", "litepose.engine.forward",
+                "litepose.engine.decode", "litepose.engine.readback", "litepose.engine.shard")
+HRNET_SPANS = ("litepose.hrnet.stem", "litepose.hrnet.transition", "litepose.hrnet.branches",
+               "litepose.hrnet.fuse", "litepose.hrnet.head")
+SPANS = ENGINE_SPANS + HRNET_SPANS
 
 NOOP = contextlib.nullcontext()
 

@@ -39,6 +39,7 @@ from litepose_tpu_torch.utils import spans
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE_PY = os.path.join(REPO, "litepose_tpu_torch", "core", "engine.py")
+HRNET_PY = os.path.join(REPO, "litepose_tpu_torch", "models", "higher_hrnet.py")
 SIZE = 128
 FLAGS = dict(num_joints=14, with_heatmaps_loss=(True, True), with_ae_loss=(True, False),
              test_with_heatmaps=(True, True), test_with_ae=(True, False), flip_test=False)
@@ -159,11 +160,16 @@ def test_people_are_bit_identical_with_the_profiler_on_and_off(model, images):
 
 
 def test_every_span_is_opened_by_the_engine():
-    with open(ENGINE_PY) as f:
-        source = f.read()
-    assert len(set(spans.SPANS)) == len(spans.SPANS) == 6
-    for name in spans.SPANS:
-        assert name.startswith("litepose.") and f'"{name}"' in source, name
+    """The engine opens the six ``litepose.engine.*`` spans, HigherHRNet's
+    forward the five ``litepose.hrnet.*`` ones, and ``SPANS`` is both."""
+    assert len(set(spans.SPANS)) == len(spans.SPANS) == 11
+    assert spans.SPANS == spans.ENGINE_SPANS + spans.HRNET_SPANS
+    for path, names, prefix in ((ENGINE_PY, spans.ENGINE_SPANS, "litepose.engine."),
+                                (HRNET_PY, spans.HRNET_SPANS, "litepose.hrnet.")):
+        with open(path) as f:
+            source = f.read()
+        for name in names:
+            assert name.startswith(prefix) and f'"{name}"' in source, name
 
 
 def _event(name, device_type, start, end, annotation=False):
