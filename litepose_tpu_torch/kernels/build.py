@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
-           "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu")
+           "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu", "conv_epilogue.cu")
 HEADERS = ("group_common.cuh", "nms_common.cuh")
 LIB_NAME = "liblitepose_kernels.so"
 
@@ -79,6 +79,9 @@ _SIGNATURES = {
     # x, w, bias, out, B, C, H, W, k, stride, act, stream
     "lp_depthwise_conv": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                           _PTR),
+    # y, bias, bias_bf16, residual (or null), out, B, C, H, W, k, nhwc, act, stream (K7)
+    "lp_conv_epilogue": (_PTR, _PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _PTR),
 }
 
 

@@ -48,6 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops.epilogue import unfused
 from ..utils.spans import span
 from . import layers as L
 
@@ -119,14 +120,16 @@ def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1, bias: bool = False)
 
 
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
-            act: str = "none") -> torch.Tensor:
-    """conv, BN, then ``act`` ("none", "relu6", "relu"): a pair that
-    ``HigherHRNet.fold_bn_`` folded as ``layers.conv_bn``; an unfolded one
-    (training, EfficientHRNet) as the JAX ``_convbn``, the BN after the
+            act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv, BN, ``residual`` added where given (``layers.conv_bn``'s
+    contract), then ``act`` ("none", "relu6", "relu"): a pair that
+    ``HigherHRNet.fold_bn_`` folded as ``layers.conv_bn`` (at bf16 eval the
+    bias, residual and activation in one kernel after the conv); an unfolded
+    one (training, EfficientHRNet) as the JAX ``_convbn``, the BN after the
     conv (``layers.batch_norm``)."""
     if hasattr(conv, "folded_w"):
-        return L.conv_bn(x, conv, bn, dtype, act)
-    return L.activation(L.batch_norm(L.conv(x, conv, dtype), bn), act)
+        return L.conv_bn(x, conv, bn, dtype, act, residual)
+    return unfused(L.batch_norm(L.conv(x, conv, dtype), bn), None, residual, act)
 
 
 def _card_layout(w: torch.Tensor) -> torch.Tensor:
@@ -145,8 +148,12 @@ class ConvBN(nn.Sequential):
         super().__init__(conv2d(cin, cout, k, stride), L.bn2d(cout))
         self.act = act
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return conv_bn(x, self[0], self[1], dtype, self.act or "none")
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                residual: Optional[torch.Tensor] = None,
+                act: Optional[str] = None) -> torch.Tensor:
+        """``conv_bn`` of the pair; ``act`` in place of the layer's own (a
+        fuse row's ReLU, folded into its last term)."""
+        return conv_bn(x, self[0], self[1], dtype, act or self.act or "none", residual)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
@@ -170,8 +177,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
-        y = conv_bn(y, self.conv2, self.bn2, dtype)
-        return torch.relu(y + _residual(x, self.downsample, dtype))
+        return conv_bn(y, self.conv2, self.bn2, dtype, "relu",
+                       _residual(x, self.downsample, dtype))
 
     def pairs(self):
         return [(self.conv1, self.bn1), (self.conv2, self.bn2)]
@@ -192,8 +199,8 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
         y = conv_bn(y, self.conv2, self.bn2, dtype, "relu")
-        y = conv_bn(y, self.conv3, self.bn3, dtype)
-        return torch.relu(y + _residual(x, self.downsample, dtype))
+        return conv_bn(y, self.conv3, self.bn3, dtype, "relu",
+                       _residual(x, self.downsample, dtype))
 
     def pairs(self):
         return [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
@@ -262,20 +269,28 @@ class HighResolutionModule(nn.Module):
             return self._fuse(ys, dtype)
 
     def _fuse(self, ys: List[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
+        """Row i: ``acc`` summed left to right over j of branch j at i's
+        resolution, then ReLU.  Each conv term's last ``conv_bn`` takes
+        ``acc`` as its residual (a j > i term's output, at 1/2^(j-i) of
+        i's plane, is upsampled into it there) and, as the row's last term,
+        the ReLU; only a row that ends on its own branch adds and clamps
+        apart.  The terms are summed in j's order, each into the running
+        ``acc``: no sum is regrouped."""
         fused = []
         for i, row in enumerate(self.fuse_layers):
-            acc = None
+            acc, last = None, len(row) - 1
             for j, layer in enumerate(row):
+                act = "relu" if j == last else None
                 if j == i:
-                    contrib = ys[j]
-                elif j > i:
-                    contrib = L.upsample_nearest(layer(ys[j], dtype), 2 ** (j - i))
-                else:
-                    contrib = ys[j]
-                    for step in layer:
-                        contrib = step(contrib, dtype)
-                acc = contrib if acc is None else acc + contrib
-            fused.append(torch.relu(acc))
+                    acc = ys[j] if acc is None else acc + ys[j]
+                    if act:
+                        acc = torch.relu(acc)
+                    continue
+                chain, z = [layer] if j > i else list(layer), ys[j]
+                for step in chain[:-1]:
+                    z = step(z, dtype)
+                acc = chain[-1](z, dtype, acc, act)
+            fused.append(acc)
         return fused
 
 

@@ -25,6 +25,14 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
   window's products differs.  On the CPU the op runs that sequence itself,
   so a CPU forward keeps its bits; fp32, training and dense convs keep
   ``F.conv2d``.
+* At bf16 eval the epilogue of every other conv of a folded pair (the
+  bias, the residual ``conv_bn`` is given, the activation) goes to the
+  port's own kernel (``ops.epilogue.conv_epilogue``,
+  ``csrc/conv_epilogue.cu``): one launch after cuDNN's conv where the bias
+  cast, the bias add, the residual add (with the nearest upsample of a
+  HigherHRNet fuse) and the clamp were up to five.  It rounds as that
+  sequence does, bit for bit; on the CPU the op runs that sequence itself.
+  fp32, training and unfolded pairs keep the ATen ops.
 * In training mode every BN is a plain ``nn.BatchNorm2d`` (batch
   statistics, momentum 0.1, eps 1e-5), as ``layers.batch_norm`` is; under
   a process group of more than one rank it takes the global statistics of
@@ -35,14 +43,15 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import make_divisible
-from ..ops.depthwise import KERNELS, STRIDES, activation, depthwise_conv
+from ..ops.depthwise import KERNELS, STRIDES, depthwise_conv
+from ..ops.epilogue import conv_epilogue, unfused
 from ..parallel.mesh import sync_batch_stats, world
 
 BN_EPS = 1e-5
@@ -101,29 +110,43 @@ def fused_depthwise(conv: nn.Conv2d, x: torch.Tensor) -> bool:
             and not (x.requires_grad and torch.is_grad_enabled()))
 
 
-def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
-            dtype: torch.dtype, act: str = "none") -> torch.Tensor:
-    """conv followed by BN, then ``act`` ("none", "relu6" as ``torch.clamp``,
-    "relu"): batch statistics in training; at eval the weights
-    ``LitePose.fold_bn_`` folded once, else folded here, and a depthwise
-    conv in bf16 as one kernel with its bias and activation
-    (``fused_depthwise``)."""
+def fused_epilogue(y: torch.Tensor, residual: Optional[torch.Tensor]) -> bool:
+    """Whether the epilogue of an eval ``conv_bn`` whose conv gave ``y``
+    takes the epilogue kernel: ``y`` bf16, a residual (if any) in its dtype,
+    and no gradient to carry (the op has none)."""
+    return (y.dtype == torch.bfloat16
+            and (residual is None or residual.dtype == y.dtype)
+            and not (torch.is_grad_enabled()
+                     and (y.requires_grad or residual is not None and residual.requires_grad)))
+
+
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+            act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv followed by BN, then ``residual`` added where given (of the
+    output's shape, or a sum at 2, 4 or 8 times its plane that the output is
+    nearest-upsampled into: a HigherHRNet fuse), then ``act`` ("none",
+    "relu6" as ``torch.clamp``, "relu"): batch statistics in training; at
+    eval the weights ``LitePose.fold_bn_`` folded once, else folded here; a
+    depthwise conv in bf16 as one kernel with its bias and activation
+    (``fused_depthwise``), any other conv's epilogue in bf16 as one kernel
+    after the conv (``fused_epilogue``); elsewhere the epilogue is
+    ``ops.epilogue.unfused``, the ATen sequence the kernel equals."""
     # each step rebinds y, so no step holds the tensor before it
     if bn.training:
         y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
                      conv.padding, conv.dilation, conv.groups)
-        y = bn_train(y, bn)
-        return activation(y, act)
+        return unfused(bn_train(y, bn), None, residual, act)
     if hasattr(conv, "folded_w"):
         w, bias = conv.folded_w, conv.folded_b
     else:
         w, bias = fold_bn(conv, bn, dtype)
     x = x.to(dtype)
-    if fused_depthwise(conv, x):
+    if residual is None and fused_depthwise(conv, x):
         return depthwise_conv(x, w, bias, conv.stride[0], act)
     y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation, conv.groups)
-    y = y + bias.to(y.dtype)[:, None, None]
-    return activation(y, act)
+    if fused_epilogue(y, residual):
+        return conv_epilogue(y, bias, residual, act)  # y is conv_bn's own: written in place
+    return unfused(y, bias, residual, act)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -201,8 +224,10 @@ class ConvBNReLU6(nn.Sequential):
             layers.append(nn.ReLU6())
         super().__init__(*layers)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return conv_bn(x, self[0], self[1], dtype, "relu6" if len(self) > 2 else "none")
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return conv_bn(x, self[0], self[1], dtype, "relu6" if len(self) > 2 else "none",
+                       residual)
 
 
 class InvBottleneck(nn.Module):
@@ -219,8 +244,8 @@ class InvBottleneck(nn.Module):
         self.residual = stride == 1 and cin == cout
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = self.point_conv(self.depth_conv(self.inv(x, dtype), dtype), dtype)
-        return y + x if self.residual else y
+        y = self.depth_conv(self.inv(x, dtype), dtype)
+        return self.point_conv(y, dtype, x if self.residual else None)
 
 
 class SepConv2d(nn.Module):

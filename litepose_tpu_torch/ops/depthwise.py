@@ -6,7 +6,7 @@ No TPU kernel stands behind it: the JAX package leaves the conv to
 ops.  ``depthwise_conv`` launches the kernel for a CUDA tensor, counted by
 ``depthwise_conv.launches``, and runs the plain twin
 ``depthwise_conv_ref`` for a CPU tensor, both through the registered op
-``torch.ops.litepose.depthwise_conv`` (``library.py``).  The twin is the
+``torch.ops.litepose.depthwise_conv`` as ``library.call`` calls it.  The twin is the
 unfused sequence the layers ran before the kernel (``F.conv2d``, then
 ``+ bias.to(dtype)``, then ``torch.clamp`` or ``torch.relu``), so a CPU
 forward keeps its bits; the kernel equals it on the card up to the order of
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import library  # noqa: F401  registers torch.ops.litepose.*
+from . import library  # also registers torch.ops.litepose.*
 
 KERNELS = (3, 5, 7)
 STRIDES = (1, 2)
@@ -67,10 +67,11 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, stride:
                          f"{C}, got {tuple(w.shape)} and {tuple(bias.shape)}")
     if w.dtype != x.dtype:
         raise TypeError(f"w must be in x's dtype {x.dtype}, got {w.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"depthwise_conv runs on cpu or cuda, not {x.device}")
-    return torch.ops.litepose.depthwise_conv(x.contiguous(), w.contiguous(), bias.contiguous(),
-                                             stride, act)
+    if x.device.type not in ("cpu", "cuda") or w.device != x.device or bias.device != x.device:
+        raise ValueError(f"depthwise_conv runs on cpu or cuda, all its inputs on one device, "
+                         f"got {x.device}, {w.device} and {bias.device}")
+    return library.call("depthwise_conv", x.contiguous(), w.contiguous(), bias.contiguous(),
+                        stride, act)
 
 
 depthwise_conv.launches = 0

@@ -209,10 +209,10 @@ def match_by_tag(tag_k: torch.Tensor, val_k: torch.Tensor, cfg: StaticGroupCfg,
     return cid.to(torch.int32), n_cl.to(torch.int32)
 
 
-def _group_kernel(op, name: str, tag_k: torch.Tensor, val_k: torch.Tensor,
+def _group_kernel(name: str, tag_k: torch.Tensor, val_k: torch.Tensor,
                   cfg: StaticGroupCfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Checks, then the op: the CPU twin, or one launch of the grouping
-    kernel (counted on ``<name>.launches``)."""
+    """Checks, then the op ``name``: the CPU twin, or one launch of the
+    grouping kernel (counted on ``<name>.launches``)."""
     if tag_k.dim() != 4 or val_k.shape != tag_k.shape[:3]:
         raise ValueError(
             f"expected tag (B,K,M,T) and val (B,K,M), got {tuple(tag_k.shape)} "
@@ -222,9 +222,9 @@ def _group_kernel(op, name: str, tag_k: torch.Tensor, val_k: torch.Tensor,
     if tag_k.device.type not in ("cpu", "cuda") or val_k.device != tag_k.device:
         raise ValueError(f"{name} runs on cpu or cuda, got {tag_k.device} "
                          f"and {val_k.device}")
-    return op(tag_k, val_k, [int(k) for k in cfg.joint_order], cfg.max_people,
-              cfg.max_clusters, cfg.detection_threshold, cfg.tag_threshold,
-              cfg.use_detection_val, cfg.ignore_too_much)
+    return library.call(name, tag_k, val_k, [int(k) for k in cfg.joint_order],
+                        cfg.max_people, cfg.max_clusters, cfg.detection_threshold,
+                        cfg.tag_threshold, cfg.use_detection_val, cfg.ignore_too_much)
 
 
 def group_greedy(tag_k: torch.Tensor, val_k: torch.Tensor,
@@ -235,7 +235,7 @@ def group_greedy(tag_k: torch.Tensor, val_k: torch.Tensor,
     (``group_greedy.launches`` counts those launches)."""
     if cfg.assignment != "greedy":
         raise ValueError(f"group_greedy needs assignment='greedy', got {cfg.assignment!r}")
-    return _group_kernel(torch.ops.litepose.group_greedy, "group_greedy", tag_k, val_k, cfg)
+    return _group_kernel("group_greedy", tag_k, val_k, cfg)
 
 
 def group_hungarian(tag_k: torch.Tensor, val_k: torch.Tensor,
@@ -250,8 +250,7 @@ def group_hungarian(tag_k: torch.Tensor, val_k: torch.Tensor,
     if M != cfg.max_people or M + 1 > library.MAX_COLUMNS:
         raise ValueError(f"hungarian grouping needs M == max_people <= "
                          f"{library.MAX_COLUMNS - 1}, got M={M}, max_people={cfg.max_people}")
-    return _group_kernel(torch.ops.litepose.group_hungarian, "group_hungarian", tag_k,
-                         val_k, cfg)
+    return _group_kernel("group_hungarian", tag_k, val_k, cfg)
 
 
 group_greedy.launches = 0

@@ -6,24 +6,33 @@ exported program as one graph node, which a loaded artifact dispatches by
 its inputs' device.  The ops are defined on a ``torch.library.Library``
 with their schemas written out and registered per dispatch key: no Python
 layer sits between the dispatcher and a launch (``torch.library.custom_op``
-would add its autograd wrapper, in Python, to every call).  Each op has
-three implementations:
+would add its autograd wrapper, in Python, to every call).  Every
+wrapper calls its op through ``call``: a plain card tensor outside any
+tracing (``eager``) goes straight to the CUDA implementation, for the
+dispatcher's boxed call into a Python implementation costs the host about
+9 us, more than some launches (the forward makes one after every conv);
+anything else (a CPU tensor, ``torch.export``'s fake tensors, a dispatch
+mode, the compiler) goes through ``torch.ops.litepose.<op>``, one graph
+node under tracing.  Each op has three implementations:
 
 - CUDA: one launch of the kernel in ``csrc/`` (built by ``kernels/build.py``
   at first use), on the inputs' card (the implementation runs under
-  ``torch.cuda.device`` of its first tensor: the ctypes launch and
+  ``torch.cuda.device`` of its first tensor where that is not the current
+  device: the ctypes launch and
   ``cudaFuncSetAttribute`` act on the calling thread's current device,
   which a mesh engine's shard thread need not have set), counted on its
   wrapper's ``launches``
   (``ops.topk.nms_topk.launches`` / ``.loop_launches``,
   ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
   ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``,
-  ``ops.depthwise.depthwise_conv.launches``),
+  ``ops.depthwise.depthwise_conv.launches``,
+  ``ops.epilogue.conv_epilogue.launches``),
   so an artifact's launches count too (under a lock: shard threads launch
   at once).  The kernels are built and loaded at the first launch, by one
   thread.  A failed build or launch raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
-  ``refine_argmax_ref``, ``nms_suppress_ref``, ``depthwise_conv_ref``);
+  ``refine_argmax_ref``, ``nms_suppress_ref``, ``depthwise_conv_ref``,
+  ``conv_epilogue_ref``);
 - fake: the output shapes and dtypes, for tracing.
 
 =====================  ===  ==========================  ================================
@@ -36,13 +45,14 @@ op                     #    kernel                      TPU kernel
 ``refine_argmax``      K4   ``csrc/refine_argmax.cu``   ``ops/pallas_refine.py:38``
 ``heatmap_nms``        K5   ``csrc/heatmap_nms.cu``     ``ops/pallas_nms.py:27``
 ``depthwise_conv``     K6   ``csrc/depthwise_conv.cu``  none (``lax.conv_general_dilated``)
+``conv_epilogue``      K7   ``csrc/conv_epilogue.cu``   none (XLA's fusion after the conv)
 =====================  ===  ==========================  ================================
 
 The grouping configuration crosses as plain arguments (the joint order as
 ``int[]``, thresholds as floats that reach the kernel as ``c_float``).
 Shape and dtype checks stay in the wrappers (``ops/topk.py``,
 ``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``,
-``ops/depthwise.py``); what depends on the
+``ops/depthwise.py``, ``ops/epilogue.py``); what depends on the
 card (limits of a kernel's geometry, contiguity, alignment) is checked
 here.  This module imports nothing of the package at import time, so a
 process that loads an artifact imports it, and through it the twins,
@@ -78,15 +88,46 @@ SCHEMAS = {
     "refine_argmax": "(Tensor need, Tensor prev, Tensor det, Tensor tag) -> Tensor",
     "heatmap_nms": "(Tensor det, int nms_kernel) -> Tensor",
     "depthwise_conv": "(Tensor x, Tensor w, Tensor bias, int stride, str act) -> Tensor",
+    "conv_epilogue": "(Tensor y, Tensor bias, Tensor? residual, str act) -> Tensor",
 }
 OPS = tuple(SCHEMAS)
 
 
-def _register(name: str, cuda, cpu, fake) -> None:
+_OP = {}  # op name -> torch.ops.litepose.<name>.default
+_EAGER = {}  # op name -> its CUDA implementation as ``call`` runs it
+
+
+def _register(name: str, cuda, cpu, fake, eager=None) -> None:
+    """Define the op ``name`` with its CUDA, CPU and fake implementations;
+    ``eager``, where given, is what ``call`` runs outside the dispatcher in
+    place of ``cuda`` (K7's, which may write into its input)."""
     _LIB.define(name + SCHEMAS[name])
     _LIB.impl(name, cuda, "CUDA")
     _LIB.impl(name, cpu, "CPU")
     torch.library.register_fake(f"litepose::{name}", fake, lib=_LIB)
+    _OP[name] = getattr(torch.ops.litepose, name).default
+    _EAGER[name] = eager or cuda
+
+
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+
+
+def eager(t: Tensor) -> bool:
+    """Whether ``t`` is a plain card tensor outside any tracing: no compiler
+    and no dispatch mode at work, no tensor subclass (a fake tensor of
+    ``torch.export``)."""
+    return (t.is_cuda and type(t) is Tensor and not _dispatch_modes()
+            and not torch.compiler.is_compiling())
+
+
+def call(name: str, t: Tensor, *args):
+    """The op ``name`` on ``(t, *args)``, ``t`` its first tensor, as every
+    wrapper calls it: the CUDA implementation itself where ``eager(t)``,
+    else ``torch.ops.litepose.<name>`` (the twin on a CPU tensor, one node
+    under tracing)."""
+    if eager(t):
+        return _EAGER[name](t, *args)
+    return _OP[name](t, *args)
 
 
 _BUILD_LOCK = threading.Lock()
@@ -117,16 +158,27 @@ def count_launch(wrapper, attr: str = "launches") -> None:
 
 
 def _on_its_device(impl):
-    """``impl`` run under its first tensor's device (see the module doc)."""
+    """``impl`` run under its first tensor's device (see the module doc),
+    which is entered only where it is not the current one."""
     @functools.wraps(impl)
     def run(t: Tensor, *args):
-        with torch.cuda.device(t.device):
+        dev = t.get_device()
+        if dev == torch.cuda.current_device():
+            return impl(t, *args)
+        with torch.cuda.device(dev):
             return impl(t, *args)
 
     return run
 
 
-def _stream(t: Tensor):
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(t: Tensor) -> int:
+    """The current stream's handle on ``t``'s card, made into no Python
+    stream object where the build has the raw lookup."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -465,3 +517,78 @@ def _depthwise_conv_fake(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: s
 
 
 _register("depthwise_conv", depthwise_conv_cuda, _depthwise_conv_twin, _depthwise_conv_fake)
+
+
+# -- K7: the epilogue of a folded dense conv: bias, residual, activation ---------
+
+
+@functools.lru_cache(maxsize=None)
+def _epilogue():
+    """``ops.epilogue`` (the contract, the wrapper and its counter), imported
+    once: an import statement a call would cost the host after every conv."""
+    from . import epilogue
+
+    return epilogue
+
+
+def _conv_epilogue(y: Tensor, bias: Tensor, residual, act: str, into_y: bool) -> Tensor:
+    """K7: y (B, C, H, W) bf16, NCHW or channels-last, bias (C) fp32 or
+    bf16, residual None or bf16 in y's layout, of y's shape or 2, 4 or 8
+    times its plane -> act(upsample(y + bias) + residual) bf16 in y's
+    layout, in one launch; written into y itself where ``into_y`` and the
+    output has y's shape, else into a new tensor."""
+    ep = _epilogue()
+    fmt, k = ep.contract(y, bias, residual, act)
+    if y.numel() << (2 * k) >= 2**31:
+        raise ValueError(f"the K7 kernel takes fewer than 2^31 elements a tensor, got "
+                         f"{tuple(y.shape)} upsampled {2**k} times")
+    if into_y and not k:
+        out = y
+    else:
+        out = torch.empty(y.shape if residual is None else residual.shape, dtype=y.dtype,
+                          device=y.device, memory_format=fmt)
+    if out.numel():
+        build, lib = _kernels()
+        B, C, H, W = y.shape
+        err = lib.lp_conv_epilogue(y.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.bfloat16),
+                                   None if residual is None else residual.data_ptr(),
+                                   out.data_ptr(), B, C, H, W, k,
+                                   int(fmt is torch.channels_last), ep.ACTS.index(act),
+                                   _stream(y))
+        build.check(err, "conv_epilogue")
+        count_launch(ep.conv_epilogue)
+    return out
+
+
+@_on_its_device
+def conv_epilogue_cuda(y: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    """K7 through the dispatcher: its output in a new tensor (the op's
+    schema writes none of its inputs)."""
+    return _conv_epilogue(y, bias, residual, act, False)
+
+
+@_on_its_device
+def conv_epilogue_into_y(y: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    """K7 as ``call`` runs it on an eager card tensor: an output of y's
+    shape written into y itself (the wrapper's caller gives y up), which
+    spares an allocation a call."""
+    return _conv_epilogue(y, bias, residual, act, True)
+
+
+def _conv_epilogue_twin(y: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    from .epilogue import contract, conv_epilogue_ref
+
+    contract(y, bias, residual, act)
+    return conv_epilogue_ref(y, bias, residual, act)
+
+
+def _conv_epilogue_fake(y: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    from .epilogue import contract
+
+    fmt, _ = contract(y, bias, residual, act)
+    shape = y.shape if residual is None else residual.shape
+    return torch.empty(shape, dtype=y.dtype, device=y.device, memory_format=fmt)
+
+
+_register("conv_epilogue", conv_epilogue_cuda, _conv_epilogue_twin, _conv_epilogue_fake,
+          eager=conv_epilogue_into_y)

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import library  # noqa: F401  registers torch.ops.litepose.*
+from . import library  # also registers torch.ops.litepose.*
 
 
 def heatmap_nms(det: torch.Tensor, kernel: int = 5) -> torch.Tensor:
@@ -66,7 +66,7 @@ def nms_suppress(det: torch.Tensor, nms_kernel: int = 5) -> torch.Tensor:
     if det.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_suppress runs on cpu or cuda, not {det.device}")
     H, W = det.shape[-2:]
-    out = torch.ops.litepose.heatmap_nms(det.reshape(-1, H, W).contiguous(), nms_kernel)
+    out = library.call("heatmap_nms", det.reshape(-1, H, W).contiguous(), nms_kernel)
     return out.reshape(det.shape)
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import library  # noqa: F401  registers torch.ops.litepose.*
+from . import library  # also registers torch.ops.litepose.*
 from .topk import check_tag_layout
 
 
@@ -87,7 +87,7 @@ def refine_argmax(need: torch.Tensor, prev: torch.Tensor, det: torch.Tensor,
         raise ValueError(f"all inputs must lie on one device, got {devices}")
     if det.device.type not in ("cpu", "cuda"):
         raise ValueError(f"refine_argmax runs on cpu or cuda, not {det.device}")
-    return torch.ops.litepose.refine_argmax(need, prev, det, tag)
+    return library.call("refine_argmax", need, prev, det, tag)
 
 
 refine_argmax.launches = 0

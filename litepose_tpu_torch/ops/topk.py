@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from . import library  # noqa: F401  registers torch.ops.litepose.*
+from . import library  # also registers torch.ops.litepose.*
 from .nms import heatmap_nms, top_m
 
 
@@ -57,8 +57,8 @@ def nms_topk(det: torch.Tensor, max_people: int, nms_kernel: int = 5,
         raise ValueError(f"max_people {max_people} not in [1, {H * W}]")
     if det.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_topk runs on cpu or cuda, not {det.device}")
-    op = torch.ops.litepose.nms_topk if _gather == "vec" else torch.ops.litepose.nms_topk_loop
-    return op(det, max_people, nms_kernel)
+    return library.call("nms_topk" if _gather == "vec" else "nms_topk_loop", det, max_people,
+                        nms_kernel)
 
 
 nms_topk.launches = 0

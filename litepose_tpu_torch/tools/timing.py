@@ -9,8 +9,9 @@
   of the kernels a call runs, from ``torch.profiler`` (CUPTI), summed by
   ``KERNEL_FAMILIES``; each port kernel (K1-K5, K1') is a family of its own,
   the depthwise conv K6 is counted in "depthwise conv" (with PyTorch's,
-  which a bf16 eval forward no longer launches), and ``breakdown`` holds
-  each against the launch count its wrapper kept over the traced calls.
+  which a bf16 eval forward no longer launches), the dense convs' epilogue
+  K7 in "conv_epilogue", and ``breakdown`` holds each against the launch
+  count its wrapper kept over the traced calls.
 
 Nothing here runs at import: ``torch.profiler`` is imported by the calls
 that trace.
@@ -34,6 +35,7 @@ KERNEL_FAMILIES = (
     ("K4 refine_argmax", ("refine_argmax_tile_kernel", "refine_finalize_kernel")),
     ("K5 heatmap_nms", ("heatmap_nms_ring_kernel", "heatmap_nms_kernel")),
     ("depthwise conv", ("depthwise",)),
+    ("conv_epilogue", ("conv_epilogue",)),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "implicit_convolve", "winograd",
                       "fft", "sm90_", "sm80_", "nvjet")),
     ("resize (bilinear)", ("upsample",)),
@@ -49,6 +51,7 @@ def port_launches() -> Dict[str, int]:
     """Each port kernel's family -> its wrapper's launch count so far
     (``ops.library.count_launch`` adds one where a wrapper launches)."""
     from ..ops.depthwise import depthwise_conv
+    from ..ops.epilogue import conv_epilogue
     from ..ops.group import group_greedy, group_hungarian
     from ..ops.nms import nms_suppress
     from ..ops.refine import refine_argmax
@@ -58,7 +61,8 @@ def port_launches() -> Dict[str, int]:
             "K2 group_greedy": group_greedy.launches,
             "K3 group_hungarian": group_hungarian.launches,
             "K4 refine_argmax": refine_argmax.launches, "K5 heatmap_nms": nms_suppress.launches,
-            "depthwise conv": depthwise_conv.launches}
+            "depthwise conv": depthwise_conv.launches,
+            "conv_epilogue": conv_epilogue.launches}
 
 
 def family_of(kernel_name: str) -> str:

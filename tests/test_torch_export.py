@@ -105,17 +105,19 @@ def test_graph_holds_the_kernels(serving):
     """The counterpart of ``"tpu_custom_call" in mlir``: each kernel is one
     node of the exported graph, K1 + K2 on the serving path, K1 + K3 + K4
     under ``--exact --eval-decode`` (flip test and projection too), and the
-    bf16 forward's depthwise convs one K6 node each (flip test runs one
-    forward over the doubled batch)."""
-    depthwise = ["litepose.depthwise_conv.default"] * sum(
-        1 for m in serving.apply_fn.modules() if isinstance(m, torch.nn.Conv2d)
-        and m.groups == m.in_channels == m.out_channels > 1)
-    assert len(depthwise) > 0
+    bf16 forward's depthwise convs one K6 node each and its other folded
+    convs' epilogues one K7 node each (flip test runs one forward over the
+    doubled batch)."""
+    pairs = [c for c, _ in serving.apply_fn._conv_bn_pairs()]
+    dw = sum(1 for c in pairs if c.groups == c.in_channels == c.out_channels > 1)
+    forward = (["litepose.conv_epilogue.default"] * (len(pairs) - dw)
+               + ["litepose.depthwise_conv.default"] * dw)
+    assert dw > 0 and len(pairs) > dw
     assert _litepose_targets(export_engine(serving, batch=2)) == [
-        *depthwise, "litepose.group_greedy.default", "litepose.nms_topk.default"]
+        *forward, "litepose.group_greedy.default", "litepose.nms_topk.default"]
     evaluator = _engine(EVAL, flip=True, model=serving.apply_fn)
     ep = export_engine(evaluator, batch=2)
-    assert _litepose_targets(ep) == [*depthwise, "litepose.group_hungarian.default",
+    assert _litepose_targets(ep) == [*forward, "litepose.group_hungarian.default",
                                      "litepose.nms_topk.default",
                                      "litepose.refine_argmax.default"]
     imgs = _images(5)

@@ -3,7 +3,9 @@
 group_hungarian, refine_argmax, heatmap_nms}`` is registered, passes
 ``torch.library.opcheck`` (schema, fake implementation, autograd
 registration, tracing), and on the CPU equals its plain twin bit for bit;
-the same ``opcheck`` on the card is marked ``cuda``, and so is a launch on
+``library.call``, through which every wrapper runs its op, goes through
+the op off the card and straight to the CUDA implementation on it.  The
+same ``opcheck`` on the card is marked ``cuda``, and so is a launch on
 ``cuda:1`` tensors from a thread whose current device is ``cuda:0`` (two
 cards; it skips below).
 
@@ -99,7 +101,7 @@ CASE_IDS = [f"{i}-{c[0]}" for i, c in enumerate(_cases("cpu"))]
 def test_ops_registered():
     assert library.OPS == ("nms_topk", "nms_topk_loop", "group_greedy",
                            "group_hungarian", "refine_argmax", "heatmap_nms",
-                           "depthwise_conv")
+                           "depthwise_conv", "conv_epilogue")
     for name in library.OPS:
         op = getattr(torch.ops.litepose, name).default
         assert op._schema.name == f"litepose::{name}"
@@ -123,6 +125,27 @@ def test_cpu_op_is_the_twin(index):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                            w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+def _equal(got, want):
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if not (g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("index", range(len(CASE_IDS)), ids=CASE_IDS)
+def test_call_goes_through_the_op_off_the_card(index, monkeypatch):
+    """On a CPU tensor ``library.call`` takes the registered op, once, and
+    never the CUDA implementation."""
+    name, args, twin = _cases("cpu")[index]
+    ran = []
+    op = library._OP[name]
+    monkeypatch.setitem(library._OP, name, lambda *a: ran.append(name) or op(*a))
+    monkeypatch.setitem(library._EAGER, name, None)
+    assert not library.eager(args[0])
+    assert _equal(library.call(name, *args), twin(*args)) and ran == [name]
 
 
 def test_fake_shapes_under_export():
@@ -187,6 +210,25 @@ def test_opcheck_cuda(cuda, index):
         assert torch.equal(g, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(CASE_IDS)), ids=CASE_IDS)
+def test_call_skips_the_dispatcher_on_card(cuda, index, monkeypatch):
+    """On a plain card tensor ``library.call`` runs the CUDA implementation
+    itself, equal to the twin; under a fake-tensor mode it takes the op."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    name, args, twin = _cases(cuda)[index]
+    op = library._OP[name]
+    monkeypatch.setitem(library._OP, name, None)
+    assert library.eager(args[0])
+    got = library.call(name, *args)
+    torch.cuda.synchronize()
+    assert _equal(got, twin(*args))
+    monkeypatch.setitem(library._OP, name, op)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        assert not library.eager(args[0])
+
+
 @pytest.fixture
 def second_card():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -202,10 +244,11 @@ def test_launch_on_the_tensors_card(second_card, index):
     cuda:1, leaves the current device alone, and equals its twin."""
     name, args, twin = _cases(second_card)[index]
     torch.cuda.set_device(0)
-    got = getattr(torch.ops.litepose, name)(*args)
-    torch.cuda.synchronize(second_card)
-    assert torch.cuda.current_device() == 0
-    want = twin(*args)
-    for g, w in zip(got if isinstance(got, tuple) else (got,),
-                    want if isinstance(want, tuple) else (want,)):
-        assert g.device == second_card and torch.equal(g, w)
+    for run in (getattr(torch.ops.litepose, name), lambda *a: library.call(name, *a)):
+        got = run(*args)
+        torch.cuda.synchronize(second_card)
+        assert torch.cuda.current_device() == 0
+        want = twin(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.device == second_card and torch.equal(g, w)
