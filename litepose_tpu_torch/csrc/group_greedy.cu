@@ -83,7 +83,6 @@ struct GreedyAssign {
     int rarg;
     row_first_min(row, 0u, rmin, rarg);
     unsigned krow = float_key(rmin);
-    LP_STAMP(st.index, 2);
 
     const unsigned big_key = float_key(kBig);
     unsigned dead = 0;   // killed columns, warp-uniform
@@ -158,9 +157,3 @@ extern "C" int lp_group_greedy(const float* tag, const float* val, const int* or
                       tag, val, order, cid, ncl, B, K, M, T, n_steps, P, PC, det_thr,
                       tag_thr, use_val, ignore_too_much, stream);
 }
-
-#ifdef LP_GROUP_CLOCK
-extern "C" int lp_group_greedy_clock(void* dst) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, lp_group::g_clock, sizeof(lp_group::g_clock)));
-}
-#endif

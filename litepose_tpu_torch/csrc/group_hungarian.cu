@@ -92,7 +92,6 @@ struct HungarianAssign {
     // columns, as the twin masks them), or above every key (lanes past M)
     const unsigned shut_key = lane > n ? kNoKey : inf_key;
     __syncwarp();
-    LP_STAMP(st.index, 2);
 
     float up = 0.0f;  // u[p[lane]]: potential of the row on column `lane`
     float v = 0.0f;   // v[lane]: potential of column `lane`
@@ -189,9 +188,3 @@ extern "C" int lp_group_hungarian(const float* tag, const float* val, const int*
                       group_hungarian_kernel<0>, tag, val, order, cid, ncl, B, K, M, T,
                       n_steps, P, PC, det_thr, tag_thr, use_val, ignore_too_much, stream);
 }
-
-#ifdef LP_GROUP_CLOCK
-extern "C" int lp_group_hungarian_clock(void* dst) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, lp_group::g_clock, sizeof(lp_group::g_clock)));
-}
-#endif

@@ -28,11 +28,11 @@
 // max into a second array, then a row max), spent about 35 instructions a
 // cell with an integer division and modulo, and overlapped a tile's load
 // with nothing but the other resident CTAs, 6 at most an SM.  Measured
-// (PERF.md, tools/nms_clock.py), this design runs within 3% of the same
-// launch with the window max taken out (an LP_NMS_COPY build, which only
-// moves the bytes): what is left between it and the bound is the rate at
-// which the card streams bulk loads in and 16-byte stores out, 80-83% of
-// its peak (PyTorch's copy of the same bytes: 86-90%).
+// (PERF.md), this design runs within 3% of the same launch with the window
+// max taken out (a build that only moves the bytes): what is left between
+// it and the bound is the rate at which the card streams bulk loads in and
+// 16-byte stores out, 80-83% of its peak (PyTorch's copy of the same
+// bytes: 86-90%).
 //
 // Design, the ring instance (rows a whole number of 16-byte chunks, the
 // base and the output 16-byte aligned, at most ring_threads(R) chunks a
@@ -232,22 +232,6 @@ constexpr int kMinRows = 8;           // rows a CTA writes, at least (small laun
 // instance takes; the register window of r > 3 needs more than 128 a thread
 __host__ __device__ constexpr int ring_threads(int r) { return r <= 3 ? 512 : 256; }
 
-#ifdef LP_NMS_CLOCK
-// Thread 0's cycles in the first kClockCtas CTAs of the last ring launch,
-// for litepose_tpu_torch/tools/nms_clock.py; compiled out otherwise.
-// [cta][0] the CTA's cycles, start to end; [1] waiting on the ring's
-// mbarriers; [2] at the barrier that ends a stage; [3] issuing copies;
-// [4] computing (ring loads, maxima, the kept chunk); [5] storing (the
-// 16-byte stores, with any wait for the kept value they write); [6] rows
-// staged; [7] stages; [8] copies issued; [9] the SM.
-constexpr int kClockCtas = 64;
-constexpr int kClockSlots = 10;
-__device__ long long g_nms_clock[kClockCtas][kClockSlots];
-#define LP_NMS_CLOCKED(statement) statement
-#else
-#define LP_NMS_CLOCKED(statement)
-#endif
-
 template <typename T>
 struct Cells;
 
@@ -412,9 +396,6 @@ __global__ void __launch_bounds__(ring_threads(R))
   constexpr int kSide = side_chunks<T, R>();
   extern __shared__ __align__(128) uint4 ring[];
   __shared__ __align__(8) unsigned long long full[kStages];  // a slot's copy has landed
-  LP_NMS_CLOCKED(const long long t_start = clock64(); long long t_wait = 0; long long t_end = 0;
-                 long long t_issue = 0; long long t_compute = 0; long long t_store = 0;
-                 long long issued = 0; long long t;)
 
   // this CTA's rows [g0, g1), and the rows it stages, [a, b): r more either
   // side within the same plane
@@ -431,12 +412,10 @@ __global__ void __launch_bounds__(ring_threads(R))
   const int w0 = static_cast<int>(g0 - a), w1 = static_cast<int>(g1 - a);
 
   auto stage_in = [&](int j) {  // stage j into slot j % kStages, by thread 0
-    LP_NMS_CLOCKED(const long long t0 = clock64();)
     const int r0 = j * stage_rows;
     const uint32_t bytes = static_cast<uint32_t>(min(stage_rows, n - r0)) * chunks * 16u;
     bulk_load(ring + (j % kStages) * slot, src + static_cast<size_t>(r0) * chunks, bytes,
               &full[j % kStages]);
-    LP_NMS_CLOCKED(t_issue += clock64() - t0; ++issued;)
   };
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -459,24 +438,17 @@ __global__ void __launch_bounds__(ring_threads(R))
   int yl = static_cast<int>(a % H);  // the plane row of staged row i
   const uint4* row = ring;
   int j = 0, k = 0;  // the stage of row i, and i's row within it
-  LP_NMS_CLOCKED(t = clock64();)
   bar_wait(&full[0], 0);
-  LP_NMS_CLOCKED(t_wait += clock64() - t;)
   for (int i = 0; i < n; ++i) {
     if (k == stage_rows) {
-      LP_NMS_CLOCKED(t = clock64();)
       __syncthreads();  // every thread is done with slot j % kStages
-      LP_NMS_CLOCKED(t_end += clock64() - t;)
       if (threadIdx.x == 0 && j + kStages < stages) stage_in(j + kStages);
       ++j;
       k = 0;
       row = ring + (j % kStages) * slot;
-      LP_NMS_CLOCKED(t = clock64();)
       bar_wait(&full[j % kStages], (j / kStages) & 1);
-      LP_NMS_CLOCKED(t_wait += clock64() - t;)
     }
     if (mine) {
-      LP_NMS_CLOCKED(t = clock64();)
       uint32_t w[4 * (2 * kSide + 1)];
       unpack(row[c], w + 4 * kSide);
 #pragma unroll
@@ -502,41 +474,16 @@ __global__ void __launch_bounds__(ring_threads(R))
         }
         const int o = i - R + f;
         if (o >= w0 && o < w1 && o >= top) {
-#ifdef LP_NMS_COPY
-          // the data movement alone (tools/nms_clock.py): the cells as staged
-          const uint4 v = make_uint4(win.x[0][0], win.x[0][1], win.x[0][2], win.x[0][3]);
-#else
           const uint4 v = win.kept();
-#endif
-          LP_NMS_CLOCKED(const long long t1 = clock64(); t_compute += t1 - t; t = t1;)
           // evict-first: the map is not read again while the launch runs
           __stcs(dst + static_cast<size_t>(o) * chunks + c, v);
-          LP_NMS_CLOCKED(const long long t2 = clock64(); t_store += t2 - t; t = t2;)
         }
       }
-      LP_NMS_CLOCKED(t_compute += clock64() - t;)
     }
     row += chunks;
     ++k;
     if (++yl == H) yl = 0;
   }
-#ifdef LP_NMS_CLOCK
-  if (threadIdx.x == 0 && blockIdx.x < kClockCtas) {
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    long long* s = g_nms_clock[blockIdx.x];
-    s[0] = clock64() - t_start;
-    s[1] = t_wait;
-    s[2] = t_end;
-    s[3] = t_issue;
-    s[4] = t_compute;
-    s[5] = t_store;
-    s[6] = n;
-    s[7] = stages;
-    s[8] = issued;
-    s[9] = sm;
-  }
-#endif
 }
 
 // -- plans and launches --------------------------------------------------------
@@ -740,10 +687,3 @@ extern "C" int lp_heatmap_nms_plan(const void* det, int is_bf16, int planes, int
   info[8] = p.budget;
   return 0;
 }
-
-#ifdef LP_NMS_CLOCK
-// The clock slots of the last ring launch (long long [64][8]) into dst (host).
-extern "C" int lp_heatmap_nms_clock(void* dst) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_nms_clock, sizeof(g_nms_clock)));
-}
-#endif

@@ -31,8 +31,7 @@
 // maxima, the shuffles, each cell's key and its insertion into the lane's
 // list), and the M rounds of a plane are a dependent chain of one to two
 // thousand cycles each on an SM busy with other planes' pass 1; with eight
-// warps a CTA and 64 registers a thread four CTAs share an SM (PERF.md,
-// tools/topk_clock.py).
+// warps a CTA and 64 registers a thread four CTAs share an SM (PERF.md).
 //
 // Design (the costs of the earlier kernel, which kept only the row keys and
 // recomputed a row from L2 each round, and what this one does about each):
@@ -120,30 +119,6 @@ constexpr size_t kSmemBytes = 227 * 1024;
 constexpr size_t kFastBytes = kSmemBytes / 4;
 // the row keys a chain lane holds in registers (planes of up to 512 rows)
 constexpr int kRegRows = 16;
-
-#ifdef LP_TOPK_CLOCK
-// clock64 stamps of the first kClockPlanes planes' CTAs, for
-// litepose_tpu_torch/tools/topk_clock.py; compiled out otherwise.
-// [plane][0] CTA start, [1] pass 1 end, [2] chain end, [3] refills, [4]
-// thread 0's pass-1 cycles waiting for a chunk's rows (the cp.async wait
-// and the barrier after it), [5] its cycles at the barrier that ends a
-// chunk, [kClockHead + i] the end of round i < kClockRounds.
-constexpr int kClockPlanes = 64;
-constexpr int kClockHead = 8;
-constexpr int kClockRounds = 64;
-__device__ long long g_topk_clock[kClockPlanes][kClockHead + kClockRounds];
-#define LP_TOPK_STAMP(slot, value)                                  \
-  do {                                                              \
-    if (threadIdx.x == 0 && blockIdx.x < kClockPlanes)              \
-      g_topk_clock[blockIdx.x][(slot)] = (value);                   \
-  } while (0)
-#define LP_TOPK_CLOCKED(statement) statement
-#else
-#define LP_TOPK_STAMP(slot, value) \
-  do {                             \
-  } while (0)
-#define LP_TOPK_CLOCKED(statement)
-#endif
 
 __device__ __forceinline__ unsigned order_bits(unsigned bits) {
   if (bits == 0x80000000u) bits = 0u;  // -0.0 orders as +0.0
@@ -489,7 +464,6 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
                          int vec) {
   constexpr int N1 = kStaged ? kFirst : 1;  // the keys pass 1 leaves a row
   constexpr bool kBuffer = !kStaged;
-  LP_TOPK_STAMP(0, clock64());
   const int r = R >= 0 ? R : r_arg;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -525,7 +499,6 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
     const int pad = pitch - W;
     for (int i = threadIdx.x; i < nr * pad; i += kThreads)
       ring[(i / pad) * pitch + W + i % pad] = to_elem<T>(-INFINITY);
-    LP_TOPK_CLOCKED(long long t0; long long waits = 0; long long ends = 0;)
     stage_rows(x, ring, W, pitch, nr, 0, min(chunk + r, H), vec, threadIdx.x, kThreads);
     cp_async_commit();
     for (int y0 = 0; y0 < H; y0 += chunk) {
@@ -533,24 +506,17 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
       stage_rows(x, ring, W, pitch, nr, min(y0 + chunk + r, H), min(y0 + 2 * chunk + r, H),
                  vec, threadIdx.x, kThreads);
       cp_async_commit();
-      LP_TOPK_CLOCKED(t0 = clock64();)
       cp_async_wait<1>();
       __syncthreads();
-      LP_TOPK_CLOCKED(waits += clock64() - t0;)
       const int y1 = min(y0 + chunk, H);
       for (int y = y0 + warp; y < y1; y += kWarps) first_keys(rows, y);
-      LP_TOPK_CLOCKED(t0 = clock64();)
       __syncthreads();
-      LP_TOPK_CLOCKED(ends += clock64() - t0;)
     }
-    LP_TOPK_STAMP(4, waits);
-    LP_TOPK_STAMP(5, ends);
     if (warp != 0) return;
   } else {
     const PlaneRows<T> rows{x, W};
     for (int y = 0; y < H; ++y) first_keys(rows, y);
   }
-  LP_TOPK_STAMP(1, clock64());
 
   // the chain: M rounds in warp 0, no block barrier.  A lane's best row
   // key: from its kRegRows registers (rows lane + 32 t) when the plane has
@@ -588,9 +554,6 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
   float* out_v = val + plane * M;
   int* out_p = pos + plane * M;
   lane_best();
-#ifdef LP_TOPK_CLOCK
-  long long refills = 0;
-#endif
   for (int i = 0; i < M; ++i) {
     const unsigned vmax = __reduce_max_sync(kFull, bv);
     const int y = static_cast<int>(__reduce_min_sync(kFull, bv == vmax ? by : kNone));
@@ -620,9 +583,6 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
         head[y] = 0;
         fill[y] = S;
       }
-#ifdef LP_TOPK_CLOCK
-      ++refills;
-#endif
     } else {
       next = cache[y * S + h + 1];
       if (lane == 0) head[y] = static_cast<unsigned char>(h + 1);
@@ -637,12 +597,7 @@ __global__ void __launch_bounds__(kStaged ? kThreads : 32, kStaged ? 4 : 1)
       }
       lane_best();
     }
-#ifdef LP_TOPK_CLOCK
-    if (i < kClockRounds) LP_TOPK_STAMP(kClockHead + i, clock64());
-#endif
   }
-  LP_TOPK_STAMP(2, clock64());
-  LP_TOPK_STAMP(3, refills);
 }
 
 // 1: the staged instance, 2: the lean one, -1: neither fits; *chunk and
@@ -738,31 +693,3 @@ extern "C" int lp_nms_topk_loop(const void* det, int is_bf16, float* val, int* p
               : launch_t<float>(instance, det, val, pos, planes, H, W, M, r, chunk, vec, smem, st);
   return static_cast<int>(e);
 }
-
-#ifdef LP_TOPK_CLOCK
-// The stamps of the last launch (long long [64][8 + 64]) into dst (host).
-extern "C" int lp_nms_topk_loop_clock(void* dst) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_topk_clock, sizeof(g_topk_clock)));
-}
-
-// The CTAs an SM holds at once for the instance the plan picks (the
-// occupancy calculator's count after lp_nms_topk_loop's attributes).
-extern "C" int lp_nms_topk_loop_occupancy(int H, int W, int r, int is_bf16, int* blocks) {
-  int chunk;
-  size_t smem;
-  const int instance = plan(H, W, r, is_bf16 ? 2 : 4, &chunk, &smem);
-  if (instance < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto occ = [&](auto kernel, int threads) {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
-  };
-  if (is_bf16)
-    return static_cast<int>(instance == 2 ? occ(nms_topk_loop_kernel<__nv_bfloat16, -1, 1, false>, 32)
-                            : r == 1      ? occ(nms_topk_loop_kernel<__nv_bfloat16, 1, kCache, true>, kThreads)
-                            : r == 2      ? occ(nms_topk_loop_kernel<__nv_bfloat16, 2, kCache, true>, kThreads)
-                                          : occ(nms_topk_loop_kernel<__nv_bfloat16, -1, kCache, true>, kThreads));
-  return static_cast<int>(instance == 2 ? occ(nms_topk_loop_kernel<float, -1, 1, false>, 32)
-                          : r == 1      ? occ(nms_topk_loop_kernel<float, 1, kCache, true>, kThreads)
-                          : r == 2      ? occ(nms_topk_loop_kernel<float, 2, kCache, true>, kThreads)
-                                        : occ(nms_topk_loop_kernel<float, -1, kCache, true>, kThreads));
-}
-#endif

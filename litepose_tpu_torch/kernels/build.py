@@ -110,24 +110,20 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def source_hash(extra_flags: tuple = (), flags: tuple = NVCC_FLAGS,
-                sources: tuple = SOURCES + HEADERS) -> str:
-    h = hashlib.sha256(" ".join(flags + tuple(extra_flags)).encode())
+def source_hash(flags: tuple = NVCC_FLAGS, sources: tuple = SOURCES + HEADERS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(extra_flags: tuple = ()) -> tuple[Path, float, str]:
-    """Compile the sources unless this exact build exists.  ``extra_flags``
-    (e.g. ``-DLP_GROUP_CLOCK`` for ``tools/group_clock.py``,
-    ``-DLP_TOPK_CLOCK`` for ``tools/topk_clock.py``, ``-DLP_NMS_CLOCK`` for
-    ``tools/nms_clock.py``) go to every nvcc and into the build's hash.
+def build() -> tuple[Path, float, str]:
+    """Compile the sources unless this exact build exists.
 
     Returns (library path, seconds spent compiling, compiler log); seconds
     is 0.0 when an existing build was reused."""
-    out_dir = BUILD_ROOT / source_hash(extra_flags)
+    out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.is_file():
@@ -138,8 +134,7 @@ def build(extra_flags: tuple = ()) -> tuple[Path, float, str]:
     # one nvcc per source, all at once, then one link
     compiles = []
     for name in SOURCES:
-        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(out_dir / (name + ".o")),
-               str(CSRC / name)]
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / (name + ".o")), str(CSRC / name)]
         compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
     log = ""
@@ -181,7 +176,7 @@ def load() -> ctypes.CDLL:
 def build_host() -> Path:
     """Compile the host library with the C++ compiler (``$CXX``, else
     ``c++``) unless this exact build exists; raises if the compiler fails."""
-    out_dir = BUILD_ROOT / source_hash((), HOST_FLAGS, HOST_SOURCES)
+    out_dir = BUILD_ROOT / source_hash(HOST_FLAGS, HOST_SOURCES)
     lib = out_dir / HOST_LIB_NAME
     if lib.is_file():
         return lib

@@ -28,12 +28,12 @@ its BNs as LitePose does (``layers.FoldsBN``): every conv followed by a BN
 ``ConvBN`` of the transitions, fuse layers and 0-block branches) runs as
 ``layers.conv_bn``, the weight folded once in the JAX order and the bias
 added after the conv, then its activation.  The head's transposed conv
-keeps its BN unfolded (``layers.batch_norm``).  The folded biases, and
-the final layers' and the transposed conv's weights (``cast_w``), are
-stored once in ``compute_dtype`` at fold time, so the forward casts none.
-On a card the eval forward runs channels-last, cuDNN's layout, and the
-stored weights are kept so.  In training every BN takes batch statistics,
-as JAX's.
+keeps its BN unfolded (``layers.batch_norm``).  The final layers' and the
+transposed conv's weights and the head BN's affine are stored once in
+``compute_dtype`` with the folded pairs (``layers.prepare_eval_``), so the
+forward casts none.  On a card the eval forward runs channels-last, cuDNN's
+layout (``eval_layout``), and the stored weights are kept so.  In training
+every BN takes batch statistics, as JAX's.
 EfficientHRNet shares the stages and the head but never folds: a pair with
 no folded weight keeps the BN unfolded after its conv, as the JAX module.
 
@@ -123,19 +123,13 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.d
             act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv, BN, ``residual`` added where given (``layers.conv_bn``'s
     contract), then ``act`` ("none", "relu6", "relu"): a pair that
-    ``HigherHRNet.fold_bn_`` folded as ``layers.conv_bn`` (at bf16 eval the
+    ``FoldsBN.fold_bn_`` folded as ``layers.conv_bn`` (at bf16 eval the
     bias, residual and activation in one kernel after the conv); an unfolded
     one (training, EfficientHRNet) as the JAX ``_convbn``, the BN after the
     conv (``layers.batch_norm``)."""
     if hasattr(conv, "folded_w"):
         return L.conv_bn(x, conv, bn, dtype, act, residual)
     return unfused(L.batch_norm(L.conv(x, conv, dtype), bn), None, residual, act)
-
-
-def _card_layout(w: torch.Tensor) -> torch.Tensor:
-    """A stored weight in the layout the eval forward runs in: channels-last
-    on a card, as it is elsewhere."""
-    return w.contiguous(memory_format=torch.channels_last) if w.is_cuda else w
 
 
 class ConvBN(nn.Sequential):
@@ -361,6 +355,11 @@ class HigherHRNet(L.FoldsBN, nn.Module):
     ``eval()`` folds the BNs (``fold_bn_``); after writing weights into a
     model in eval mode, call ``fold_bn_()`` again."""
 
+    # cuDNN's convolutions are NHWC: in NCHW each would transpose its input
+    # and output (two more launches, and about a quarter of the W48
+    # forward's device time on an H100)
+    eval_layout = torch.channels_last
+
     def __init__(self, spec: HRNetSpec, compute_dtype: torch.dtype = torch.bfloat16,
                  out_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -400,34 +399,6 @@ class HigherHRNet(L.FoldsBN, nn.Module):
                 pairs.append((m[0], m[1]))
         return pairs
 
-    def _cast_convs(self) -> List[nn.Module]:
-        """The convs with no BN to fold whose weights ``fold_bn_`` stores in
-        ``compute_dtype``: the final layers and the head's transposed convs."""
-        return list(self.final_layers) + [stage[0][0] for stage in self.deconv_layers]
-
-    def fold_bn_(self):
-        """``FoldsBN.fold_bn_``, with each folded bias stored in
-        ``compute_dtype`` and the final layers' and transposed convs' weights
-        stored in it once (``cast_w``): the bits a cast at each call gives,
-        with no cast left in the forward.  On a card the weights are stored
-        channels-last, the layout the eval forward runs in there."""
-        super().fold_bn_()
-        dt = self.compute_dtype
-        for conv, _ in self._conv_bn_pairs():
-            conv.folded_w = _card_layout(conv.folded_w)
-            conv.folded_b = conv.folded_b.to(dt)
-        for m in self._cast_convs():
-            m.register_buffer("cast_w", _card_layout(m.weight.detach().to(dt, copy=True)),
-                              persistent=False)
-        return self
-
-    def train(self, mode: bool = True):
-        super().train(mode)
-        if mode:
-            for m in self._cast_convs():
-                m._buffers.pop("cast_w", None)
-        return self
-
     @staticmethod
     def _transition(pre: List[int], cur: List[int]) -> nn.ModuleList:
         """None where a branch passes as it is, a conv-BN-ReLU where its
@@ -446,10 +417,7 @@ class HigherHRNet(L.FoldsBN, nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         dt = self.compute_dtype
         if x.is_cuda and not self.training:
-            # cuDNN's convolutions are NHWC: in NCHW each would transpose its
-            # input and output (two more launches, and about a quarter of the
-            # W48 forward's device time on an H100); outputs stay channels-last
-            x = x.contiguous(memory_format=torch.channels_last)
+            x = x.contiguous(memory_format=self.eval_layout)  # outputs stay in it
         with span("litepose.hrnet.stem"):
             y = conv_bn(x, self.conv1, self.bn1, dt, "relu")
             y = conv_bn(y, self.conv2, self.bn2, dt, "relu")

@@ -15,7 +15,10 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
   (``litepose_tpu/models/layers.py:191-204``): ``w' = w * rsqrt(var + eps)
   * scale`` in fp32, only then cast to the compute dtype; the bias
   ``beta - mean * inv`` is added in the activation dtype.  Folding in
-  another order gives other bf16 weights than the JAX model.
+  another order gives other bf16 weights than the JAX model.  A model that
+  folds (``FoldsBN``) stores every constant of its eval forward once
+  (``prepare_eval_``), so the forward casts no weight and derives no
+  affine.
 * At bf16 eval the depthwise conv of a folded pair (k 3, 5 or 7, stride 1
   or 2, padding k // 2) goes to the port's own kernel
   (``ops.depthwise.depthwise_conv``, ``csrc/depthwise_conv.cu``), which
@@ -126,7 +129,7 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.d
     output's shape, or a sum at 2, 4 or 8 times its plane that the output is
     nearest-upsampled into: a HigherHRNet fuse), then ``act`` ("none",
     "relu6" as ``torch.clamp``, "relu"): batch statistics in training; at
-    eval the weights ``LitePose.fold_bn_`` folded once, else folded here; a
+    eval the weights ``FoldsBN.fold_bn_`` folded once, else folded here; a
     depthwise conv in bf16 as one kernel with its bias and activation
     (``fused_depthwise``), any other conv's epilogue in bf16 as one kernel
     after the conv (``fused_epilogue``); elsewhere the epilogue is
@@ -151,19 +154,28 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.d
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """A BN with no conv to fold into: at eval ``x * inv + bias`` in the
-    activation dtype (``layers.batch_norm``, eval branch)."""
+    activation dtype (``layers.batch_norm``, eval branch), the pair that
+    ``prepare_eval_`` stored where it stored one, else derived now."""
     if bn.training:
         return bn_train(x, bn)
-    inv, bias = bn_affine(bn)
-    return x * inv.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
+    inv = bn._buffers.get("eval_inv")
+    if inv is None:
+        inv, bias = (t.to(x.dtype) for t in bn_affine(bn))
+    else:
+        bias = bn.eval_b
+    return x * inv[:, None, None] + bias[:, None, None]
+
+
+def stored(m: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """The constant ``prepare_eval_`` stored on ``m`` as ``name``; None in
+    training and where none is stored (a model that does not fold)."""
+    return None if m.training else m._buffers.get(name)
 
 
 def weight(m: nn.Module, dtype: torch.dtype) -> torch.Tensor:
-    """``m``'s weight in ``dtype``: at eval the copy a model's ``fold_bn_``
-    stored (``cast_w``, HigherHRNet's head) where it is in ``dtype``, else
-    cast now."""
-    w = None if m.training else m._buffers.get("cast_w")
-    return w if w is not None and w.dtype == dtype else m.weight.to(dtype)
+    """``m``'s weight in ``dtype``: its stored copy at eval, else cast now."""
+    w = stored(m, "cast_w")
+    return m.weight.to(dtype) if w is None else w
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -176,37 +188,83 @@ def conv_bias(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor
     """A conv, then its bias added in the output dtype (the JAX
     ``conv(...) + b.astype(out.dtype)`` of the families' final layers)."""
     y = conv(x, m, dtype)
-    return y + m.bias.to(y.dtype)[:, None, None]
+    b = stored(m, "cast_b")
+    return y + (m.bias.to(y.dtype) if b is None else b)[:, None, None]
+
+
+# the buffers prepare_eval_ stores: a folded pair's conv, any other conv, any other BN
+EVAL_BUFFERS = ("folded_w", "folded_b", "cast_w", "cast_b", "eval_inv", "eval_b")
+
+
+def prepare_eval_(model: nn.Module, pairs, dtype: torch.dtype,
+                  layout: torch.memory_format = torch.contiguous_format) -> None:
+    """Store on ``model``'s modules, once, every constant its eval forward
+    reads, as non-persistent buffers (they move with ``.to`` and stay out
+    of the state dict):
+
+    * each (conv, BN) of the list ``pairs``: the folded weight in ``dtype``
+      and the fp32 bias, ``fold_bn``'s (``folded_w``, ``folded_b``), the
+      bias format both kernels take;
+    * every other conv and transposed conv: its weight in ``dtype``
+      (``cast_w``, read by ``conv`` and ``deconv``) and its bias, where it
+      has one (``cast_b``, read by ``conv_bias``);
+    * every other BN: its eval affine ``bn_affine`` in ``dtype``, the dtype
+      of the conv output it scales (``eval_inv``, ``eval_b``, read by
+      ``batch_norm``).
+
+    On a card the stored 4-D weights are laid out in ``layout``."""
+    def laid(w):
+        return w.contiguous(memory_format=layout) if w.is_cuda else w
+
+    paired = {id(m) for pair in pairs for m in pair}
+    with torch.no_grad():
+        for c, bn in pairs:
+            w, bias = fold_bn(c, bn, dtype)
+            c.register_buffer("folded_w", laid(w), persistent=False)
+            c.register_buffer("folded_b", bias, persistent=False)
+        for m in model.modules():
+            if id(m) in paired:
+                continue
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.register_buffer("cast_w", laid(m.weight.to(dtype, copy=True)),
+                                  persistent=False)
+                if m.bias is not None:
+                    m.register_buffer("cast_b", m.bias.to(dtype, copy=True), persistent=False)
+            elif isinstance(m, nn.BatchNorm2d):
+                inv, bias = bn_affine(m)
+                m.register_buffer("eval_inv", inv.to(dtype), persistent=False)
+                m.register_buffer("eval_b", bias.to(dtype), persistent=False)
 
 
 class FoldsBN:
     """``fold_bn_`` and ``train`` for an ``nn.Module`` whose ``conv_bn``
     pairs ``_conv_bn_pairs()`` lists and whose convs run in
-    ``compute_dtype`` (LitePose, LitePose-ResNet, HigherHRNet)."""
+    ``compute_dtype`` (LitePose, LitePose-ResNet, HigherHRNet).
+    ``eval_layout``: the memory format its eval forward runs in on a card,
+    in which the stored weights are kept there."""
+
+    eval_layout = torch.contiguous_format
 
     def fold_bn_(self):
-        """Fold every conv's eval BN into it once, in ``compute_dtype``
-        (non-persistent buffers, so they move with ``.to`` and stay out of
-        the state dict).  Folding at every call instead adds 1.5-3% to the
-        b64 forward and doubles the b1 latency on an H100 (PERF.md).  Call
-        it again after writing weights in eval mode; ``train`` handles the
-        switches between the modes."""
-        for conv, bn in self._conv_bn_pairs():
-            w, bias = fold_bn(conv, bn, self.compute_dtype)
-            conv.register_buffer("folded_w", w, persistent=False)
-            conv.register_buffer("folded_b", bias, persistent=False)
+        """Store every constant of the eval forward once (``prepare_eval_``):
+        the folded pairs, the other convs' weights and biases and the other
+        BNs' affines, in ``compute_dtype``.  Folding at every call instead
+        adds 1.5-3% to the b64 forward and doubles the b1 latency on an H100
+        (PERF.md).  Call it again after writing weights in eval mode;
+        ``train`` handles the switches between the modes."""
+        prepare_eval_(self, self._conv_bn_pairs(), self.compute_dtype, self.eval_layout)
         return self
 
     def train(self, mode: bool = True):
-        """Switching to training drops the folded weights, which every
-        optimizer step would leave stale; switching back to eval folds the
-        trained weights again, so eval never serves the old ones."""
+        """Switching to training drops the stored constants, which every
+        optimizer step would leave stale; switching back to eval stores the
+        trained weights' again, so eval never serves the old ones."""
         was_training = self.training
         super().train(mode)
         if mode:
-            for conv, _ in self._conv_bn_pairs():
-                for name in ("folded_w", "folded_b"):
-                    conv._buffers.pop(name, None)
+            for m in self.modules():
+                for name in EVAL_BUFFERS:
+                    m._buffers.pop(name, None)
         elif was_training:
             self.fold_bn_()
         return self

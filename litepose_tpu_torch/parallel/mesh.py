@@ -201,6 +201,6 @@ def gather(parts: Sequence):
 
 def replicate(model: torch.nn.Module, devices: Sequence[torch.device]) -> List[torch.nn.Module]:
     """A copy of ``model`` on each device.  A model whose BNs are folded
-    (``LitePose.fold_bn_``) carries the folded weights into every copy
-    unchanged, so each replica serves exactly the source's weights."""
+    (``FoldsBN.fold_bn_``) carries its stored eval constants into every
+    copy unchanged, so each replica serves exactly the source's weights."""
     return [copy.deepcopy(model).to(torch.device(d)) for d in devices]

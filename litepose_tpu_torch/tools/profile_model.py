@@ -219,11 +219,8 @@ def stage_blocks(arch, B: int, device: torch.device, rng, sec: Sections) -> None
         block = L.fan_in_init_(L.InvBottleneck(c, c, ker=ker, exp=exp),
                                torch.Generator().manual_seed(si))
         moved_affines_(block, seed=si).eval()
-        for m in block.modules():
-            if isinstance(m, L.ConvBNReLU6):
-                w, bias = L.fold_bn(m[0], m[1], torch.bfloat16)
-                m[0].register_buffer("folded_w", w, persistent=False)
-                m[0].register_buffer("folded_b", bias, persistent=False)
+        L.prepare_eval_(block, [(m[0], m[1]) for m in block.modules()
+                                if isinstance(m, L.ConvBNReLU6)], torch.bfloat16)
         block.to(device)
         xs = torch.from_numpy(rng.standard_normal((B, c, hw, hw), dtype=np.float32)).to(
             device, torch.bfloat16)

@@ -277,7 +277,8 @@ def peaky(model, imgs, num_joints, share=0.02):
     pixels on ``imgs`` lie above the 0.1 detection threshold, as a trained
     model's few peaks do; a seeded init puts most of a plane above it, and
     the decode then runs at its 40-person cap on noise.  The share that
-    leaves a few people after the flip average depends on the model."""
+    leaves a few people after the flip average depends on the model.  A
+    folded model in eval mode stores its eval constants again."""
     from litepose_tpu_torch.core.inference import normalize_images
 
     with torch.no_grad():
@@ -285,6 +286,8 @@ def peaky(model, imgs, num_joints, share=0.02):
         for conv, out in zip(model.final_layers, outs):
             q = torch.quantile(out[:, :num_joints].transpose(0, 1).flatten(1), 1.0 - share, dim=1)
             conv.bias[:num_joints] -= q - 0.1
+    if not model.training and hasattr(model, "fold_bn_"):
+        model.fold_bn_()
     return model
 
 

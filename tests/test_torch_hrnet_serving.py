@@ -10,7 +10,9 @@ compute dtype.  Held here: the folded forward to the reference in fp32 and
 in bf16, ``PoseEngine.process_batch_square``'s people to the reference's
 maps decoded by the twins, the benchmark's copy of the reference to this
 one bit for bit, its fp8 control outside the benchmark's limits, the
-switches between training and eval, and the ``litepose.hrnet.*`` spans.
+switches between training and eval, and the ``litepose.hrnet.*`` spans;
+and for every family that folds (LitePose, LitePose-ResNet, HigherHRNet)
+the eval constants ``fold_bn_`` stores.
 """
 
 import json
@@ -52,10 +54,9 @@ J = NARROW.num_joints
 ENGINE_SIZE = 128
 
 
-def seeded(dtype=torch.float32, seed=0):
-    """The narrow model in training mode, its BNs drawn off the identity."""
-    model = init_higher_hrnet(NARROW, torch.Generator().manual_seed(seed), compute_dtype=dtype,
-                              out_dtype=dtype)
+def off_identity(model, seed=0):
+    """``model`` with every BN's affine and statistics drawn off the
+    identity."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -67,6 +68,12 @@ def seeded(dtype=torch.float32, seed=0):
                                 (m.running_var, rng.uniform(0.5, 1.5, c))):
                     t.copy_(torch.from_numpy(draw.astype(np.float32)))
     return model
+
+
+def seeded(dtype=torch.float32, seed=0):
+    """The narrow model in training mode, its BNs drawn off the identity."""
+    return off_identity(init_higher_hrnet(NARROW, torch.Generator().manual_seed(seed),
+                                          compute_dtype=dtype, out_dtype=dtype), seed)
 
 
 def images(n=2, size=64, seed=2):
@@ -94,29 +101,98 @@ def bench_config():
         return json.load(f)
 
 
-def test_eval_folds_every_conv_bn_pair_and_training_drops_them():
-    model = seeded()
+def _litepose(dtype):
+    from litepose_tpu_torch.arch import get_arch
+    from litepose_tpu_torch.models.litepose import ModelSpec, init_litepose
+
+    return init_litepose(ModelSpec(), get_arch("auto-XS"), torch.Generator().manual_seed(0),
+                         compute_dtype=dtype, out_dtype=dtype)
+
+
+def _litepose_resnet(dtype):
+    from litepose_tpu_torch.models.litepose import ModelSpec
+    from litepose_tpu_torch.models.litepose_resnet import init_litepose_resnet
+
+    return init_litepose_resnet(ModelSpec(deconv_kernels=(3, 3, 3)),
+                                torch.Generator().manual_seed(0), compute_dtype=dtype,
+                                out_dtype=dtype)
+
+
+# family: (the model in training mode, its convs outside a pair, its BNs outside a pair)
+FOLDING = {
+    # 6 transposed convs, the 4 heads' pointwise convs; the 3 head BNs
+    "litepose": (_litepose, 10, 3),
+    # 6 upsampling convs, 4 final convs with a bias; the 3 head BNs
+    "litepose-resnet": (_litepose_resnet, 10, 3),
+    # 2 final convs with a bias, the transposed conv; its BN
+    "higher-hrnet": (lambda dtype: init_higher_hrnet(NARROW, torch.Generator().manual_seed(0),
+                                                     compute_dtype=dtype, out_dtype=dtype),
+                     3, NARROW.num_deconvs),
+}
+CONVS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("family", list(FOLDING))
+def test_eval_folds_every_conv_bn_pair_and_training_drops_them(family, dtype):
+    """``eval()`` stores every constant of the eval forward once
+    (``layers.prepare_eval_``): each conv-BN pair's folded weight and its
+    fp32 bias, ``fold_bn``'s; every other conv's weight and bias as cast at
+    call time; every other BN's affine as ``bn_affine`` gives it, cast.
+    The readers take the stored copies, none is in the state dict, and
+    ``train()`` drops them all."""
+    make, n_convs, n_bns = FOLDING[family]
+    model = off_identity(make(dtype))
     pairs = model._conv_bn_pairs()
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    # every BN but the head's, which follows the transposed conv
-    assert len(pairs) == len(bns) - NARROW.num_deconvs
-    assert len({id(c) for c, _ in pairs}) == len(pairs)
-    assert not any(hasattr(c, "folded_w") for c, _ in pairs)
+    paired = {id(m) for pair in pairs for m in pair}
+    convs = [m for m in model.modules() if isinstance(m, CONVS) and id(m) not in paired]
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.BatchNorm2d) and id(m) not in paired]
+    assert len({id(c) for c, _ in pairs}) == len(pairs) == len(paired) // 2
+    assert (len(convs), len(bns)) == (n_convs, n_bns)
+
+    def held():
+        return [name for m in model.modules() for name in L.EVAL_BUFFERS
+                if m._buffers.get(name) is not None]
+
+    assert held() == []
     model.eval()
-    assert all(c.folded_w.dtype == torch.float32 for c, _ in pairs)
-    cast = model._cast_convs()
-    assert len(cast) == 3 and all(torch.equal(m.cast_w, m.weight) for m in cast)
-    assert "cast_w" not in str(list(model.state_dict()))
+    for conv, bn in pairs:
+        w, bias = L.fold_bn(conv, bn, dtype)
+        assert conv.folded_b.dtype == torch.float32
+        assert torch.equal(conv.folded_w, w) and torch.equal(conv.folded_b, bias)
+    for m in convs:
+        assert m.cast_w.dtype == dtype and torch.equal(m.cast_w, m.weight.to(dtype))
+        assert L.weight(m, dtype) is m.cast_w
+        if m.bias is None:
+            assert "cast_b" not in m._buffers
+        else:
+            assert m.cast_b.dtype == dtype and torch.equal(m.cast_b, m.bias.to(dtype))
+    for bn in bns:
+        inv, bias = L.bn_affine(bn)
+        assert torch.equal(bn.eval_inv, inv.to(dtype)) and torch.equal(bn.eval_b, bias.to(dtype))
+    assert len(held()) == 2 * len(pairs) + len(convs) + sum(
+        m.bias is not None for m in convs) + 2 * len(bns)
+    assert not set(held()) & {k.rsplit(".", 1)[-1] for k in model.state_dict()}
     model.train()
-    assert not any(hasattr(c, "folded_w") for c, _ in pairs)
-    assert not any(hasattr(m, "cast_w") for m in cast)
-    # in bf16 the fold leaves no cast in the forward: bias and head weights
-    # are stored in bf16, with the bits a cast at each call gives
-    model = seeded(torch.bfloat16).eval()
-    for conv, bn in model._conv_bn_pairs():
-        w, bias = L.fold_bn(conv, bn, torch.bfloat16)
-        assert torch.equal(conv.folded_w, w) and torch.equal(conv.folded_b, bias.bfloat16())
-    assert all(torch.equal(m.cast_w, m.weight.bfloat16()) for m in model._cast_convs())
+    assert held() == []
+
+
+def test_litepose_bf16_eval_forward_casts_no_parameter():
+    """Under the profiler one bf16 eval forward of LitePose on the CPU
+    derives nothing from the weights: no BN affine (``aten::rsqrt``) and no
+    cast of a weight.  Its only casts are the folded pairs' fp32 biases,
+    one a pair, which the CPU twins of the depthwise and epilogue kernels
+    round to bf16 as the kernels do."""
+    model = off_identity(_litepose(torch.bfloat16)).eval()
+    x = torch.randn((1, 3, 64, 64), generator=torch.Generator().manual_seed(1)).bfloat16()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof, \
+            torch.no_grad():
+        model(x)
+    names = [e.name for e in prof.events()]
+    assert "aten::convolution" in names and "aten::rsqrt" not in names
+    casts = sorted(tuple(e.input_shapes[0]) for e in prof.events() if e.name == "aten::_to_copy")
+    assert casts == sorted((c.out_channels,) for c, _ in model._conv_bn_pairs())
 
 
 def test_channels_last_input_gives_the_nchw_outputs():
@@ -274,7 +350,8 @@ def test_fold_train_eval_serves_the_trained_weights():
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     loss = sum(o.square().mean() for o in model(x))
     loss.backward()
-    assert all(m.weight.grad is not None for m in model._cast_convs())
+    heads = list(model.final_layers) + [stage[0][0] for stage in model.deconv_layers]
+    assert all(m.weight.grad is not None for m in heads)
     opt.step()
     model.eval()
     fresh = fresh_model(model.state_dict())
@@ -340,6 +417,8 @@ def test_eval_forward_on_the_card(cuda):
     model = model.to(cuda).eval().fold_bn_()
     assert all(c.folded_w.is_contiguous(memory_format=torch.channels_last)
                for c, _ in model._conv_bn_pairs())
+    heads = list(model.final_layers) + [stage[0][0] for stage in model.deconv_layers]
+    assert all(m.cast_w.is_contiguous(memory_format=torch.channels_last) for m in heads)
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:

@@ -64,11 +64,18 @@ LR, WD = 0.1, 1e-4
 RANKS = 2
 TIMEOUT = 110  # seconds a multi-process run may take
 
+# A rank that has saved its result leaves without the interpreter's
+# teardown: on a loaded host (the tier-1 run's six workers) that teardown
+# has aborted a rank whose job had ended and whose result was saved
+# ("terminate called without an active exception" from gloo's C++ side).
 _WORKER = """
-import sys
+import os, sys
 sys.path.insert(0, sys.argv[4])
 import test_torch_parallel
 test_torch_parallel.rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 """
 
 
