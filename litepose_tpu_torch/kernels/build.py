@@ -30,8 +30,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
-           "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu", "conv_epilogue.cu")
-HEADERS = ("group_common.cuh", "nms_common.cuh")
+           "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu", "conv_epilogue.cu",
+           "dense_conv3x3.cu")
+HEADERS = ("group_common.cuh", "nms_common.cuh", "conv_common.cuh")
 LIB_NAME = "liblitepose_kernels.so"
 
 # sm_90a keeps Hopper-only instructions available to later kernels.
@@ -82,6 +83,9 @@ _SIGNATURES = {
     # y, bias, bias_bf16, residual (or null), out, B, C, H, W, k, nhwc, act, stream (K7)
     "lp_conv_epilogue": (_PTR, _PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                          _PTR),
+    # x, w, bias, residual (or null), out, B, H, W, Cin, Cout, act, stream (K8)
+    "lp_conv3x3_bn_act": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+                          _PTR),
 }
 
 

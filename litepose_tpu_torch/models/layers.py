@@ -36,6 +36,14 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
   HigherHRNet fuse) and the clamp were up to five.  It rounds as that
   sequence does, bit for bit; on the CPU the op runs that sequence itself.
   fp32, training and unfolded pairs keep the ATen ops.
+* At bf16 eval a channels-last dense 3x3 stride-1 conv of a folded pair
+  (``fused_conv3x3``: HigherHRNet's, whose eval layout is channels-last)
+  goes to the port's own kernel with the epilogue in its store
+  (``ops.dense_conv.conv3x3_bn_act``, ``csrc/dense_conv3x3.cu``): one
+  launch where cuDNN's conv and the epilogue kernel were two.  Given its
+  conv's output it rounds as the epilogue does; the conv's fp32 sum runs
+  in another order than cuDNN's.  On the CPU the op runs ``F.conv2d`` and
+  ``unfused`` itself, so a CPU forward keeps its bits.
 * In training mode every BN is a plain ``nn.BatchNorm2d`` (batch
   statistics, momentum 0.1, eps 1e-5), as ``layers.batch_norm`` is; under
   a process group of more than one rank it takes the global statistics of
@@ -53,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import make_divisible
+from ..ops.dense_conv import CHANNEL_STEP, MAX_COUT, conv3x3_bn_act, within_limits
 from ..ops.depthwise import KERNELS, STRIDES, depthwise_conv
 from ..ops.epilogue import conv_epilogue, unfused
 from ..parallel.mesh import sync_batch_stats, world
@@ -113,6 +122,41 @@ def fused_depthwise(conv: nn.Conv2d, x: torch.Tensor) -> bool:
             and not (x.requires_grad and torch.is_grad_enabled()))
 
 
+def conv3x3_kernel_takes(conv: nn.Conv2d) -> bool:
+    """Whether the dense 3x3 kernel takes ``conv`` as a conv: 3x3 at stride
+    1, padding 1, no dilation and groups 1, Cin and Cout multiples of 16,
+    Cout at most 512."""
+    return (conv.kernel_size == (3, 3) and conv.stride == (1, 1) and conv.groups == 1
+            and conv.padding == (1, 1) and conv.dilation == (1, 1)
+            and conv.in_channels % CHANNEL_STEP == 0 and conv.out_channels % CHANNEL_STEP == 0
+            and conv.out_channels <= MAX_COUT)
+
+
+def fused_conv3x3(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor]) -> bool:
+    """Whether an eval ``conv_bn`` of ``conv`` on ``x`` (already in the
+    compute dtype) takes the dense 3x3 kernel: a conv it takes
+    (``conv3x3_kernel_takes``), its weight folded and stored
+    (``prepare_eval_``; laid out channels-last on a card); ``x`` bf16,
+    channels-last and of sizes the kernel takes (``within_limits``: at most
+    1024 wide, B H W max(Cin, Cout) below 2^31); a residual (if any) of the
+    output's shape, bf16 and channels-last; and no gradient to carry (the
+    op has none)."""
+    if conv.kernel_size != (3, 3) or conv.stride != (1, 1) or x.dtype != torch.bfloat16:
+        return False  # most convs, at the least host cost a call
+    cl = torch.channels_last
+    w = conv._buffers.get("folded_w")
+    return (w is not None and x.dim() == 4 and conv3x3_kernel_takes(conv)
+            and within_limits(x.shape[0], conv.in_channels, conv.out_channels, *x.shape[2:])
+            and x.is_contiguous(memory_format=cl)
+            and (residual is None
+                 or (residual.dtype == x.dtype
+                     and residual.shape == (x.shape[0], conv.out_channels) + x.shape[2:]
+                     and residual.is_contiguous(memory_format=cl)))
+            and (not x.is_cuda or w.is_contiguous(memory_format=cl))
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or residual is not None and residual.requires_grad)))
+
+
 def fused_epilogue(y: torch.Tensor, residual: Optional[torch.Tensor]) -> bool:
     """Whether the epilogue of an eval ``conv_bn`` whose conv gave ``y``
     takes the epilogue kernel: ``y`` bf16, a residual (if any) in its dtype,
@@ -131,9 +175,11 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.d
     "relu6" as ``torch.clamp``, "relu"): batch statistics in training; at
     eval the weights ``FoldsBN.fold_bn_`` folded once, else folded here; a
     depthwise conv in bf16 as one kernel with its bias and activation
-    (``fused_depthwise``), any other conv's epilogue in bf16 as one kernel
-    after the conv (``fused_epilogue``); elsewhere the epilogue is
-    ``ops.epilogue.unfused``, the ATen sequence the kernel equals."""
+    (``fused_depthwise``), a channels-last dense 3x3 stride-1 conv in bf16
+    as one kernel with its epilogue (``fused_conv3x3``), any other conv's
+    epilogue in bf16 as one kernel after the conv (``fused_epilogue``);
+    elsewhere the epilogue is ``ops.epilogue.unfused``, the ATen sequence
+    the kernels equal."""
     # each step rebinds y, so no step holds the tensor before it
     if bn.training:
         y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
@@ -146,6 +192,8 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.d
     x = x.to(dtype)
     if residual is None and fused_depthwise(conv, x):
         return depthwise_conv(x, w, bias, conv.stride[0], act)
+    if fused_conv3x3(conv, x, residual):
+        return conv3x3_bn_act(x, w, bias, residual, act)
     y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation, conv.groups)
     if fused_epilogue(y, residual):
         return conv_epilogue(y, bias, residual, act)  # y is conv_bn's own: written in place
@@ -194,6 +242,13 @@ def conv_bias(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor
 
 # the buffers prepare_eval_ stores: a folded pair's conv, any other conv, any other BN
 EVAL_BUFFERS = ("folded_w", "folded_b", "cast_w", "cast_b", "eval_inv", "eval_b")
+WEIGHT_BUFFERS = ("folded_w", "cast_w")  # the 4-D ones
+
+
+def laid_out(w: torch.Tensor, layout: torch.memory_format) -> torch.Tensor:
+    """A stored 4-D weight as the eval forward reads it: in ``layout`` on a
+    card, as it is on the host."""
+    return w.contiguous(memory_format=layout) if w.is_cuda else w
 
 
 def prepare_eval_(model: nn.Module, pairs, dtype: torch.dtype,
@@ -204,7 +259,7 @@ def prepare_eval_(model: nn.Module, pairs, dtype: torch.dtype,
 
     * each (conv, BN) of the list ``pairs``: the folded weight in ``dtype``
       and the fp32 bias, ``fold_bn``'s (``folded_w``, ``folded_b``), the
-      bias format both kernels take;
+      bias format the kernels take;
     * every other conv and transposed conv: its weight in ``dtype``
       (``cast_w``, read by ``conv`` and ``deconv``) and its bias, where it
       has one (``cast_b``, read by ``conv_bias``);
@@ -212,21 +267,19 @@ def prepare_eval_(model: nn.Module, pairs, dtype: torch.dtype,
       of the conv output it scales (``eval_inv``, ``eval_b``, read by
       ``batch_norm``).
 
-    On a card the stored 4-D weights are laid out in ``layout``."""
-    def laid(w):
-        return w.contiguous(memory_format=layout) if w.is_cuda else w
-
+    On a card the stored 4-D weights are laid out in ``layout``
+    (``laid_out``)."""
     paired = {id(m) for pair in pairs for m in pair}
     with torch.no_grad():
         for c, bn in pairs:
             w, bias = fold_bn(c, bn, dtype)
-            c.register_buffer("folded_w", laid(w), persistent=False)
+            c.register_buffer("folded_w", laid_out(w, layout), persistent=False)
             c.register_buffer("folded_b", bias, persistent=False)
         for m in model.modules():
             if id(m) in paired:
                 continue
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                m.register_buffer("cast_w", laid(m.weight.to(dtype, copy=True)),
+                m.register_buffer("cast_w", laid_out(m.weight.to(dtype, copy=True), layout),
                                   persistent=False)
                 if m.bias is not None:
                     m.register_buffer("cast_b", m.bias.to(dtype, copy=True), persistent=False)
@@ -253,6 +306,19 @@ class FoldsBN:
         (PERF.md).  Call it again after writing weights in eval mode;
         ``train`` handles the switches between the modes."""
         prepare_eval_(self, self._conv_bn_pairs(), self.compute_dtype, self.eval_layout)
+        return self
+
+    def _apply(self, fn, *args, **kwargs):
+        """Moving the model (``.to``, ``.cuda``) lays its stored weights out
+        as ``prepare_eval_`` lays them on the new device, so a model put in
+        eval mode before it moves to a card finds them in ``eval_layout``
+        there too."""
+        super()._apply(fn, *args, **kwargs)
+        for m in self.modules():
+            for name in WEIGHT_BUFFERS:
+                w = m._buffers.get(name)
+                if w is not None:
+                    m._buffers[name] = laid_out(w, self.eval_layout)
         return self
 
     def train(self, mode: bool = True):

@@ -1,5 +1,6 @@
 """The port's kernels as registered torch ops, ``torch.ops.litepose.*``:
-the decode kernels and the depthwise conv of the forward.
+the decode kernels and the forward's depthwise conv, dense 3x3 conv and
+conv epilogue.
 
 A ctypes call is opaque to ``torch.export``; a registered op lands in an
 exported program as one graph node, which a loaded artifact dispatches by
@@ -26,13 +27,14 @@ node under tracing.  Each op has three implementations:
   ``ops.group.group_greedy.launches`` / ``group_hungarian.launches``,
   ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``,
   ``ops.depthwise.depthwise_conv.launches``,
-  ``ops.epilogue.conv_epilogue.launches``),
+  ``ops.epilogue.conv_epilogue.launches``,
+  ``ops.dense_conv.conv3x3_bn_act.launches``),
   so an artifact's launches count too (under a lock: shard threads launch
   at once).  The kernels are built and loaded at the first launch, by one
   thread.  A failed build or launch raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
   ``refine_argmax_ref``, ``nms_suppress_ref``, ``depthwise_conv_ref``,
-  ``conv_epilogue_ref``);
+  ``conv_epilogue_ref``, ``conv3x3_bn_act_ref``);
 - fake: the output shapes and dtypes, for tracing.
 
 =====================  ===  ==========================  ================================
@@ -46,15 +48,16 @@ op                     #    kernel                      TPU kernel
 ``heatmap_nms``        K5   ``csrc/heatmap_nms.cu``     ``ops/pallas_nms.py:27``
 ``depthwise_conv``     K6   ``csrc/depthwise_conv.cu``  none (``lax.conv_general_dilated``)
 ``conv_epilogue``      K7   ``csrc/conv_epilogue.cu``   none (XLA's fusion after the conv)
+``conv3x3_bn_act``     K8   ``csrc/dense_conv3x3.cu``   none (``lax.conv_general_dilated``)
 =====================  ===  ==========================  ================================
 
 The grouping configuration crosses as plain arguments (the joint order as
 ``int[]``, thresholds as floats that reach the kernel as ``c_float``).
 Shape and dtype checks stay in the wrappers (``ops/topk.py``,
 ``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``,
-``ops/depthwise.py``, ``ops/epilogue.py``); what depends on the
-card (limits of a kernel's geometry, contiguity, alignment) is checked
-here.  This module imports nothing of the package at import time, so a
+``ops/depthwise.py``, ``ops/epilogue.py``, ``ops/dense_conv.py``); what
+depends on the card (limits of a kernel's geometry, contiguity,
+alignment) is checked here.  This module imports nothing of the package at import time, so a
 process that loads an artifact imports it, and through it the twins,
 without any model code.
 """
@@ -89,6 +92,8 @@ SCHEMAS = {
     "heatmap_nms": "(Tensor det, int nms_kernel) -> Tensor",
     "depthwise_conv": "(Tensor x, Tensor w, Tensor bias, int stride, str act) -> Tensor",
     "conv_epilogue": "(Tensor y, Tensor bias, Tensor? residual, str act) -> Tensor",
+    "conv3x3_bn_act": ("(Tensor x, Tensor w, Tensor bias, Tensor? residual, str act) "
+                       "-> Tensor"),
 }
 OPS = tuple(SCHEMAS)
 
@@ -592,3 +597,55 @@ def _conv_epilogue_fake(y: Tensor, bias: Tensor, residual, act: str) -> Tensor:
 
 _register("conv_epilogue", conv_epilogue_cuda, _conv_epilogue_twin, _conv_epilogue_fake,
           eager=conv_epilogue_into_y)
+
+
+# -- K8: a dense 3x3 stride-1 conv with K7's epilogue in its store ---------------
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_conv():
+    """``ops.dense_conv`` (the contract, the wrapper and its counter),
+    imported once."""
+    from . import dense_conv
+
+    return dense_conv
+
+
+@_on_its_device
+def conv3x3_bn_act_cuda(x: Tensor, w: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    """K8: x (B, Cin, H, W) and w (Cout, Cin, 3, 3) bf16 channels-last, bias
+    (Cout) fp32, residual None or (B, Cout, H, W) bf16
+    channels-last -> act(conv(x, w) + bias + residual) (B, Cout, H, W) bf16
+    channels-last, in one launch."""
+    dc = _dense_conv()
+    shape = dc.contract(x, w, bias, residual, act)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, w, residual)):
+        raise ValueError("the K8 kernel takes x, w and residual at 16-byte aligned addresses")
+    out = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
+    if out.numel():
+        build, lib = _kernels()
+        B, cin, H, W = x.shape
+        err = lib.lp_conv3x3_bn_act(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                    None if residual is None else residual.data_ptr(),
+                                    out.data_ptr(), B, H, W, cin, shape[1],
+                                    dc.ACTS.index(act), _stream(x))
+        build.check(err, "conv3x3_bn_act")
+        count_launch(dc.conv3x3_bn_act)
+    return out
+
+
+def _conv3x3_bn_act_twin(x: Tensor, w: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    from .dense_conv import contract, conv3x3_bn_act_ref
+
+    contract(x, w, bias, residual, act)
+    return conv3x3_bn_act_ref(x, w, bias, residual, act)
+
+
+def _conv3x3_bn_act_fake(x: Tensor, w: Tensor, bias: Tensor, residual, act: str) -> Tensor:
+    from .dense_conv import contract
+
+    return torch.empty(contract(x, w, bias, residual, act), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+_register("conv3x3_bn_act", conv3x3_bn_act_cuda, _conv3x3_bn_act_twin, _conv3x3_bn_act_fake)

@@ -18,7 +18,8 @@ identity), one eval forward records the inputs of every ``conv_epilogue``
   ATen on the card) bit for bit at every one, and with NaN, +-0 and +-inf
   planted in one;
 - one serving call (``process_batch_square``) launches it once a dense
-  conv-BN pair;
+  conv-BN pair (``dense_pairs``: in W48, those the dense 3x3 kernel K8 does
+  not take with their epilogue);
 - device times at each distinct epilogue (``--iters`` calls captured in a
   CUDA graph and replayed between CUDA events, so no host time counts):
   the kernel, ATen's sequence it replaced (``library_ms``) and the bound
@@ -131,8 +132,15 @@ def record_epilogues(forward):
 
 
 def dense_pairs(model) -> int:
+    """The dense conv-BN pairs whose epilogue is the kernel's: every pair
+    but the depthwise ones (K6) and, in a model that runs channels-last on
+    the card, the 3x3 stride-1 ones K8 takes with their epilogue."""
+    from ..models import layers as L
+
+    k8 = getattr(model, "eval_layout", None) is torch.channels_last
     return sum(1 for c, _ in model._conv_bn_pairs()
-               if not c.groups == c.in_channels == c.out_channels > 1)
+               if not c.groups == c.in_channels == c.out_channels > 1
+               and not (k8 and L.conv3x3_kernel_takes(c)))
 
 
 def serving_model(name: str, card, batch: int, log=lambda s: None):

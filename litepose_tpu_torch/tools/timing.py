@@ -10,8 +10,9 @@
   ``KERNEL_FAMILIES``; each port kernel (K1-K5, K1') is a family of its own,
   the depthwise conv K6 is counted in "depthwise conv" (with PyTorch's,
   which a bf16 eval forward no longer launches), the dense convs' epilogue
-  K7 in "conv_epilogue", and ``breakdown`` holds each against the launch
-  count its wrapper kept over the traced calls.
+  K7 in "conv_epilogue", the dense 3x3 stride-1 conv with its epilogue K8 in
+  "conv3x3_bn_act", and ``breakdown`` holds each against the launch count
+  its wrapper kept over the traced calls.
 
 Nothing here runs at import: ``torch.profiler`` is imported by the calls
 that trace.
@@ -36,6 +37,7 @@ KERNEL_FAMILIES = (
     ("K5 heatmap_nms", ("heatmap_nms_ring_kernel", "heatmap_nms_kernel")),
     ("depthwise conv", ("depthwise",)),
     ("conv_epilogue", ("conv_epilogue",)),
+    ("conv3x3_bn_act", ("conv3x3_bn_act",)),
     ("cuDNN / GEMM", ("cudnn", "xmma", "gemm", "cutlass", "implicit_convolve", "winograd",
                       "fft", "sm90_", "sm80_", "nvjet")),
     ("resize (bilinear)", ("upsample",)),
@@ -50,6 +52,7 @@ OTHER = "other"
 def port_launches() -> Dict[str, int]:
     """Each port kernel's family -> its wrapper's launch count so far
     (``ops.library.count_launch`` adds one where a wrapper launches)."""
+    from ..ops.dense_conv import conv3x3_bn_act
     from ..ops.depthwise import depthwise_conv
     from ..ops.epilogue import conv_epilogue
     from ..ops.group import group_greedy, group_hungarian
@@ -62,7 +65,8 @@ def port_launches() -> Dict[str, int]:
             "K3 group_hungarian": group_hungarian.launches,
             "K4 refine_argmax": refine_argmax.launches, "K5 heatmap_nms": nms_suppress.launches,
             "depthwise conv": depthwise_conv.launches,
-            "conv_epilogue": conv_epilogue.launches}
+            "conv_epilogue": conv_epilogue.launches,
+            "conv3x3_bn_act": conv3x3_bn_act.launches}
 
 
 def family_of(kernel_name: str) -> str:

@@ -234,14 +234,19 @@ def test_higher_hrnet_bf16_forward_keeps_its_bits(spy):
     from test_torch_hrnet_serving import J, LAYOUT, images, seeded
 
     model = seeded(torch.bfloat16).eval()
+    # channels-last (a permuted NHWC batch), so the 3x3 stride-1 pairs take
+    # the dense conv op with its epilogue (K8) and every other pair K7's
     x = plain.Reference(model.state_dict(), LAYOUT, J, "cpu").normalize(images())
-    with torch.no_grad():
+    k8, dense = [], L.conv3x3_bn_act
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "conv3x3_bn_act", lambda *args: k8.append(args[0].shape) or dense(*args))
         got = model(x)
         n = len(spy)
-        with pytest.MonkeyPatch.context() as mp:
-            _unfused_path(mp)
-            want = model(x)
-    assert n == len(spy) == len(model._conv_bn_pairs())
+        _unfused_path(mp)
+        want = model(x)
+    taken = sum(1 for c, _ in model._conv_bn_pairs() if L.conv3x3_kernel_takes(c))
+    assert taken > 0 and len(k8) == 2 * taken
+    assert n == len(spy) == len(model._conv_bn_pairs()) - taken
     # each fuse term from a coarser branch: its 1x1 conv's output upsampled
     # by 2, 4 or 8 into the running sum
     ups = [(s, r) for s, r, _ in spy if r is not None and r != s]
