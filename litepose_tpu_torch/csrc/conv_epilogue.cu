@@ -1,7 +1,7 @@
 // The epilogue of a folded dense conv at bf16 eval: the folded-BN bias, an
 // optional residual (of the output's shape, or a finer sum the output is
-// nearest-upsampled into), then none, ReLU or ReLU6, as one pass over the
-// conv's output (K7).
+// nearest-upsampled into), then none, ReLU, ReLU6 or Swish, as one pass over
+// the conv's output (K7).
 //
 // Replaces no Pallas kernel: the JAX package leaves every convolution to
 // lax.conv_general_dilated and the bias add, residual add and activation
@@ -30,7 +30,9 @@
 //   * then ReLU6 or ReLU as ATen's clamp(x, 0, 6) and clamp_min(x, 0) (what
 //     torch.relu runs): a NaN is returned as it is, anything else through
 //     the same fp32 max / min ATen's kernels take after their NaN test, so
-//     NaN, +-0 and +-inf come out as they come out of ATen.
+//     NaN, +-0 and +-inf come out as they come out of ATen; or Swish as
+//     the layers round it, x * torch.sigmoid(x) (conv_common.cuh: ATen's
+//     sigmoid in fp32 rounded to bf16, then the product rounded).
 // Every step rounds as the unfused sequence does and no sum is reordered:
 // the output equals it bit for bit.
 //
@@ -121,7 +123,9 @@ __device__ __forceinline__ uint32_t add_bf16(uint32_t a, uint32_t b) {
 
 __device__ __forceinline__ uint32_t act_bf16(uint32_t a, int act) {
   if (act == kActNone) return a;
-  return __bfloat16_as_ushort(__float2bfloat16_rn(activate(bf16_bits_to_float(a), act)));
+  const float v = bf16_bits_to_float(a);
+  return __bfloat16_as_ushort(
+      __float2bfloat16_rn(act == kActSilu ? silu_bf16(v) : activate(v, act)));
 }
 
 template <int V>
@@ -302,14 +306,15 @@ bool aligned(const void* ptr, int bytes) {
 // y (B, C, H, W) bf16, NCHW (nhwc 0) or channels-last (nhwc 1); bias (C)
 // fp32 (bias_bf16 0) or bf16; res null, of y's shape (k 0) or (B, C, H << k,
 // W << k) (k 1..3), in y's layout; out of res's shape, else y's (and then
-// may be y); act 0 none, 1 ReLU6, 2 ReLU.  Every element count below 2^31.
+// may be y); act 0 none, 1 ReLU6, 2 ReLU, 3 Swish.  Every element count
+// below 2^31.
 // Returns a CUDA error code.
 extern "C" int lp_conv_epilogue(const void* y, const void* bias, int bias_bf16, const void* res,
                                 void* out, int B, int C, int H, int W, int k, int nhwc, int act,
                                 void* stream) {
   const long long n = static_cast<long long>(B) * C * H * W;
   if (B < 0 || C < 1 || C > kMaxChannels || H < 0 || W < 0 || k < 0 || k > 3 ||
-      (k > 0 && res == nullptr) || act < kActNone || act > kActRelu ||
+      (k > 0 && res == nullptr) || act < kActNone || act > kActSilu ||
       (n << (2 * k)) >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;

@@ -1,7 +1,9 @@
-// Depthwise k x k convolution (k = 3, 5 or 7, stride 1 or 2, padding k / 2)
-// of bf16 NCHW planes with the folded-BN bias and the activation (none,
-// ReLU6 or ReLU) in its epilogue: the eval-time conv + BN (+ activation) of
-// a depthwise layer as one pass over the activations (K6).
+// Depthwise k x k convolution (k = 3, 5 or 7, stride 1 or 2, padding k / 2,
+// or at stride 2 k / 2 - 1 rows and columns of zeros before the plane:
+// TensorFlow's SAME of EfficientNet's stride-2 convs) of bf16 NCHW planes
+// with the folded-BN bias and the activation (none, ReLU6, ReLU or Swish) in
+// its epilogue: the eval-time conv + BN (+ activation) of a depthwise layer
+// as one pass over the activations (K6).
 //
 // Replaces no Pallas kernel: the JAX package leaves every convolution to
 // lax.conv_general_dilated (litepose_tpu/models/layers.py).  The port sent
@@ -15,6 +17,9 @@
 // depthwise_conv_ref (F.conv2d, + bias.to(bf16), clamp / relu):
 //   * x (B, C, H, W) bf16, w (C, 1, k, k) bf16, bias (C) fp32, contiguous;
 //     out (B, C, Ho, Wo) bf16, Ho = (H - 1) / s + 1, Wo = (W - 1) / s + 1;
+//     output (oy, ox)'s window starts at input (oy * s - p, ox * s - p), p
+//     the pad: k / 2, or k / 2 - 1 at stride 2 (the twin pads p before and
+//     k - 1 - p after, and convolves with no padding of its own);
 //   * each output is the fp32 sum of its window's k*k products (cells
 //     outside the plane are zero), taken row by row of the window and left
 //     to right in a row, rounded to bf16 once, as F.conv2d rounds its fp32
@@ -23,8 +28,10 @@
 //     order is the same, and the two agree bit for bit);
 //   * then the bias rounded to bf16 (bias.to(bf16)) is added and the sum
 //     rounded to bf16 again, as y + bias.to(y.dtype) does;
-//   * then ReLU6 or ReLU; a NaN passes, as torch.clamp and torch.relu pass
-//     it.
+//   * then ReLU6 or ReLU (a NaN passes, as torch.clamp and torch.relu pass
+//     it), or Swish as the layers round it, x * torch.sigmoid(x): the
+//     sigmoid in fp32 rounded to bf16, the product rounded to bf16
+//     (conv_common.cuh).
 //
 // What bounds it on an H100: at stride 1 an output costs 4 bytes (its
 // input cell read, itself written) and k*k fp32 multiply-adds.  7x7 is 49
@@ -62,12 +69,16 @@
 //      plane and, for whole planes, the rows above and below it are zeroed
 //      once when the CTA starts.  Weights stage as fp32 (rows of 8), loaded
 //      into registers before a unit's multiply-adds and stored after them.
+//      The pad is a template argument beside k and s: it moves the window's
+//      first staged row and column, which the unrolled loops index at
+//      compile time.
 //   4. Epilogue in registers: the pair of sums rounded to bf16x2, the bias
 //      added and rounded in bf16x2 (one rounding of the exact sum, as the
 //      fp32 add then the cast: two bf16 values whose exponents lie 16 or
 //      more apart sum to the larger either way), max.NaN / min.NaN for the
-//      activation, and one 16-byte store of 8 outputs (8-byte or 2-byte
-//      stores where a row is no multiple of 8 or 4 outputs).
+//      activation (Swish in fp32 a value), and one 16-byte store of 8
+//      outputs (8-byte or 2-byte stores where a row is no multiple of 8 or 4
+//      outputs).
 // Measured (PERF.md, tools/depthwise_clock.py): at the 7x7 stride-1 shapes
 // the multiply-adds alone run at 51-58% of the FMA pipes' rate, and staging
 // and the unit barriers take it to 34-51%; the shared loads of the input
@@ -85,6 +96,8 @@
 #include <mutex>
 #include <tuple>
 
+#include "conv_common.cuh"
+
 namespace {
 
 constexpr int kRows = 4;          // output rows a thread computes
@@ -97,39 +110,15 @@ constexpr int kRounds = 3;        // sets of tiles a unit: a thread's tiles a un
 constexpr int kWRegs = 8;         // weights a thread loads ahead for the next unit
 constexpr int kMaxBuffer = 54 * 1024;  // shared bytes of one unit: two slots, two CTAs an SM
 constexpr int kMaxShared = 2 * (kMaxBuffer + 32);
-constexpr int kActNone = 0, kActRelu6 = 1, kActRelu = 2;
 
 // 16-byte loads a thread makes from a staged row: its windows' columns
-// start kLead - k / 2 cells into the first
-__host__ __device__ constexpr int row_loads(int k, int s) {
-  return (kLead - k / 2 + (kCols - 1) * s + k + 7) / 8;
+// start kLead - p cells into the first
+__host__ __device__ constexpr int row_loads(int k, int s, int p) {
+  return (kLead - p + (kCols - 1) * s + k + 7) / 8;
 }
 
 // fp32 weights a tile stages: k rows of 8 (two 16-byte loads a row)
 __host__ __device__ constexpr int weight_pitch(int k) { return 8 * k; }
-
-// n / d for 0 <= n < 2^31 by a multiply and a shift: with l = ceil(log2 d)
-// and m = ceil(2^(31 + l) / d), n / d = (n * m) >> (31 + l)
-struct Divmod {
-  int d;
-  unsigned m;
-  int shift;
-};
-
-Divmod divmod_of(int d) {
-  Divmod f{d, 0u, 0};
-  if (d > 1) {
-    int l = 0;
-    while ((1LL << l) < d) ++l;
-    f.m = static_cast<unsigned>(((1ULL << (31 + l)) + d - 1) / d);
-    f.shift = l - 1;
-  }
-  return f;
-}
-
-__device__ __forceinline__ int fast_div(int n, const Divmod& f) {
-  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned>(n), f.m) >> f.shift);
-}
 
 // How a unit's input reaches shared memory:
 //   kPlanes: the unit's tiles are whole planes, one after another in device
@@ -164,7 +153,7 @@ struct Geometry {
   Divmod by_tiles_x, by_tiles_y, by_c;
 };
 
-Geometry plan(long long planes, int C, int H, int W, int k, int s, int chunk) {
+Geometry plan(long long planes, int C, int H, int W, int k, int s, int p, int chunk) {
   Geometry g;
   g.Ho = (H - 1) / s + 1;
   g.Wo = (W - 1) / s + 1;
@@ -173,11 +162,11 @@ Geometry plan(long long planes, int C, int H, int W, int k, int s, int chunk) {
   g.strips = (col_strips + g.tiles_x - 1) / g.tiles_x;
   g.staging = g.tiles_x > 1 || chunk == 1 ? kCells : kPlanes;
   if (g.staging == kCells) {
-    g.pitch = 8 * ((g.strips - 1) * s + row_loads(k, s));
+    g.pitch = 8 * ((g.strips - 1) * s + row_loads(k, s, p));
   } else {
     // the plane's cells and every column a valid output's window reaches; a
     // strip's loads past the row end feed only outputs right of the plane
-    const int reach = kLead + (g.Wo - 1) * s + k / 2 + 1;
+    const int reach = kLead + (g.Wo - 1) * s - p + k;
     g.pitch = ((reach > kLead + W ? reach : kLead + W) + 7) / 8 * 8;
   }
   const auto tile_bytes = [&](int groups) {
@@ -240,25 +229,27 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int valid)
 // two outputs' fp32 sums -> act(bf16(bf16(sum) + b)) as a bf16 pair (low
 // half the first).  The bf16 add rounds the exact sum once, which is the
 // fp32 add rounded to bf16 (see the design note); max.NaN / min.NaN keep a
-// NaN, as torch.clamp and torch.relu do.
+// NaN, as torch.clamp and torch.relu do; Swish as silu_bf16 rounds it.
 __device__ __forceinline__ uint32_t epilogue(float s0, float s1, __nv_bfloat162 b, int act) {
   __nv_bfloat162 z = __hadd2(__floats2bfloat162_rn(s0, s1), b);
-  if (act != kActNone) {
+  if (act == kActSilu) {
+    const float2 v = __bfloat1622float2(z);
+    z = __floats2bfloat162_rn(silu_bf16(v.x), silu_bf16(v.y));
+  } else if (act != kActNone) {
     z = __hmax2_nan(z, __float2bfloat162_rn(0.0f));
     if (act == kActRelu6) z = __hmin2_nan(z, __float2bfloat162_rn(6.0f));
   }
   return *reinterpret_cast<const uint32_t*>(&z);
 }
 
-template <int K, int S>
+template <int K, int S, int P>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     depthwise_conv_kernel(const unsigned short* __restrict__ x,
                           const unsigned short* __restrict__ w,
                           const float* __restrict__ bias, unsigned short* __restrict__ out,
                           const Geometry g, int C, int H, int W, int act, int store_vec) {
-  constexpr int P = K / 2;
   constexpr int KK = K * K;
-  constexpr int kLoads = row_loads(K, S);
+  constexpr int kLoads = row_loads(K, S, P);
   constexpr int kIn = (kRows - 1) * S + K;  // staged rows a thread's row group reads
   constexpr int kWP = weight_pitch(K);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -529,16 +520,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 }
 
 std::mutex g_mutex;
-// (device, k, s) -> the device's SMs, once the instance may take kMaxShared
-// bytes of dynamic shared memory there
-std::map<std::tuple<int, int, int>, int> g_sms;
-// (device, k, s, threads, shared bytes) -> CTAs an SM
-std::map<std::tuple<int, int, int, int, int>, int> g_per_sm;
+// (device, k, s, p) -> the device's SMs, once the instance may take
+// kMaxShared bytes of dynamic shared memory there
+std::map<std::tuple<int, int, int, int>, int> g_sms;
+// (device, k, s, p, threads, shared bytes) -> CTAs an SM
+std::map<std::tuple<int, int, int, int, int, int>, int> g_per_sm;
 
-template <int K, int S>
+template <int K, int S, int P>
 cudaError_t launch(const Geometry& g, const void* x, const void* w, const float* bias, void* out,
                    int C, int H, int W, int act, int store_vec, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&depthwise_conv_kernel<K, S>);
+  const void* kernel = reinterpret_cast<const void*>(&depthwise_conv_kernel<K, S, P>);
   const int smem = 2 * g.buffer;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -546,7 +537,7 @@ cudaError_t launch(const Geometry& g, const void* x, const void* w, const float*
   int sms = 0, per_sm = 0;
   {
     std::lock_guard<std::mutex> lock(g_mutex);
-    const auto inst = std::make_tuple(dev, K, S);
+    const auto inst = std::make_tuple(dev, K, S, P);
     auto it = g_sms.find(inst);
     if (it == g_sms.end()) {
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
@@ -555,7 +546,7 @@ cudaError_t launch(const Geometry& g, const void* x, const void* w, const float*
       it = g_sms.emplace(inst, sms).first;
     }
     sms = it->second;
-    const auto key = std::make_tuple(dev, K, S, g.threads, smem);
+    const auto key = std::make_tuple(dev, K, S, P, g.threads, smem);
     const auto found = g_per_sm.find(key);
     if (found != g_per_sm.end()) {
       per_sm = found->second;
@@ -569,45 +560,55 @@ cudaError_t launch(const Geometry& g, const void* x, const void* w, const float*
   const long long resident = static_cast<long long>(sms) * per_sm;
   // at most as many CTAs as are resident at once: each walks its units
   const int grid = static_cast<int>(g.units < resident ? g.units : resident);
-  depthwise_conv_kernel<K, S><<<grid, g.threads, smem, stream>>>(
+  depthwise_conv_kernel<K, S, P><<<grid, g.threads, smem, stream>>>(
       static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(w), bias,
       static_cast<unsigned short*>(out), g, C, H, W, act, store_vec);
   return cudaGetLastError();
 }
 
-bool in_scope(long long planes, int H, int W, int k, int s) {
-  return planes >= 1 && H >= 1 && W >= 1 && (k == 3 || k == 5 || k == 7) && (s == 1 || s == 2);
+// the pad is k / 2, or at stride 2 one less (SAME)
+bool in_scope(long long planes, int H, int W, int k, int s, int p) {
+  return planes >= 1 && H >= 1 && W >= 1 && (k == 3 || k == 5 || k == 7) && (s == 1 || s == 2) &&
+         (p == k / 2 || (s == 2 && p == k / 2 - 1));
 }
 
 // plan and launch on the current device
 cudaError_t run(const void* x, const void* w, const float* bias, void* out, long long planes,
-                int C, int H, int W, int k, int s, int act, cudaStream_t st) {
+                int C, int H, int W, int k, int s, int p, int act, cudaStream_t st) {
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int chunk = W % 8 == 0 && xa % 16 == 0 ? 8 : W % 4 == 0 && xa % 8 == 0 ? 4 : 1;
-  const Geometry g = plan(planes, C, H, W, k, s, chunk);
+  const Geometry g = plan(planes, C, H, W, k, s, p, chunk);
   if (g.tiles == 0) return cudaErrorInvalidValue;
   const uintptr_t o = reinterpret_cast<uintptr_t>(out);
   const int store_vec = g.Wo % 8 == 0 && o % 16 == 0 ? 8 : g.Wo % 4 == 0 && o % 8 == 0 ? 4 : 1;
+  const bool same = p != k / 2;
   switch (10 * k + s) {
-    case 31: return launch<3, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st);
-    case 32: return launch<3, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st);
-    case 51: return launch<5, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st);
-    case 52: return launch<5, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st);
-    case 71: return launch<7, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st);
-    default: return launch<7, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    case 31: return launch<3, 1, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    case 32:
+      return same ? launch<3, 2, 0>(g, x, w, bias, out, C, H, W, act, store_vec, st)
+                  : launch<3, 2, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    case 51: return launch<5, 1, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    case 52:
+      return same ? launch<5, 2, 1>(g, x, w, bias, out, C, H, W, act, store_vec, st)
+                  : launch<5, 2, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    case 71: return launch<7, 1, 3>(g, x, w, bias, out, C, H, W, act, store_vec, st);
+    default:
+      return same ? launch<7, 2, 2>(g, x, w, bias, out, C, H, W, act, store_vec, st)
+                  : launch<7, 2, 3>(g, x, w, bias, out, C, H, W, act, store_vec, st);
   }
 }
 
 }  // namespace
 
 // x (B, C, H, W) bf16, w (C, 1, k, k) bf16, bias (C) fp32, out (B, C, Ho, Wo)
-// bf16; act 0 none, 1 ReLU6, 2 ReLU.  Returns a CUDA error code.
+// bf16; p the pad before the plane (k / 2, or k / 2 - 1 at stride 2); act 0
+// none, 1 ReLU6, 2 ReLU, 3 Swish.  Returns a CUDA error code.
 extern "C" int lp_depthwise_conv(const void* x, const void* w, const float* bias, void* out,
-                                 int B, int C, int H, int W, int k, int s, int act,
+                                 int B, int C, int H, int W, int k, int s, int p, int act,
                                  void* stream) {
   const long long planes = static_cast<long long>(B) * C;
-  if (!in_scope(planes, H, W, k, s) || act < kActNone || act > kActRelu)
+  if (!in_scope(planes, H, W, k, s, p) || act < kActNone || act > kActSilu)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run(x, w, bias, out, planes, C, H, W, k, s, act,
+  return static_cast<int>(run(x, w, bias, out, planes, C, H, W, k, s, p, act,
                               static_cast<cudaStream_t>(stream)));
 }

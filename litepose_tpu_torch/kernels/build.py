@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms_topk.cu", "nms_topk_loop.cu", "group_greedy.cu", "group_hungarian.cu",
            "refine_argmax.cu", "heatmap_nms.cu", "depthwise_conv.cu", "conv_epilogue.cu",
-           "dense_conv3x3.cu")
+           "dense_conv3x3.cu", "squeeze_excite.cu")
 HEADERS = ("group_common.cuh", "nms_common.cuh", "conv_common.cuh")
 LIB_NAME = "liblitepose_kernels.so"
 
@@ -77,15 +77,18 @@ _SIGNATURES = {
     "lp_heatmap_nms": (_PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _PTR),
     # det, is_bf16, planes, H, W, r, info[9] (output): K5's instance and geometry
     "lp_heatmap_nms_plan": (_PTR, _INT, _INT, _INT, _INT, _INT, _INT_P),
-    # x, w, bias, out, B, C, H, W, k, stride, act, stream
+    # x, w, bias, out, B, C, H, W, k, stride, pad, act, stream
     "lp_depthwise_conv": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                          _PTR),
+                          _INT, _PTR),
     # y, bias, bias_bf16, residual (or null), out, B, C, H, W, k, nhwc, act, stream (K7)
     "lp_conv_epilogue": (_PTR, _PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                          _PTR),
     # x, w, bias, residual (or null), out, B, H, W, Cin, Cout, act, stream (K8)
     "lp_conv3x3_bn_act": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
                           _PTR),
+    # y, w1, b1, w2, b2, means, gate, arrived, out, B, C, H, W, R, stream (SE)
+    "lp_squeeze_excite": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                          _INT, _INT, _PTR),
 }
 
 

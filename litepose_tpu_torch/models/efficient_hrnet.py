@@ -18,8 +18,33 @@ reads: a stem or MBConv conv-BN-Swish is ``Sequential(ZeroPad2d, conv, BN,
 Swish)`` (children ``1`` and ``2``), an MBConv ``conv.{expand, dw, se,
 project conv, project BN}``, its squeeze-excitation ``se.{1, 3}``.
 
-SAME padding is an explicit ``F.pad`` then a conv with ``padding=0``; BNs
-stay unfolded at eval, as in the JAX module.
+SAME padding: the ``ZeroPad2d`` child holds a conv's pad, and the conv has
+``padding=0``.  In training each conv runs after an explicit ``F.pad`` and
+every BN takes batch statistics, as in the JAX module.
+
+At eval the model folds its BNs (``layers.FoldsBN``), as HigherHRNet does:
+every conv-BN pair (``_conv_bn_pairs``: the stem, each MBConv's expand,
+depthwise and project convs, each transition's conv with its own bias, and
+the HRNet stages' and head's pairs) runs as ``layers.conv_bn`` given its
+pad: a stride-1 conv pads as its own padding, a stride-2 depthwise conv
+takes the depthwise kernel's SAME pad, the stem's stride-2 dense conv an
+explicit pad.  At bf16 each depthwise conv is one launch with its bias and
+Swish (K6), the epilogue of every dense conv is one launch after cuDNN's
+conv (K7: Swish in the backbone, the project's residual, ReLU in the
+transitions and stages), and each squeeze-excitation is
+``ops.squeeze_excite``'s two launches.  The SE's linears, the final
+layers' and the transposed conv's weights and the head BN's affine are
+stored once in the compute dtype (``layers.prepare_eval_``).  The whole
+forward runs NCHW, the depthwise kernel's layout.  Channels-last stages,
+as HigherHRNet runs them, are slower here (PERF.md): at these widths, no
+multiple of 8, cuDNN copies each channels-last conv's operands through
+channel-padded buffers.
+
+The forward opens ``litepose.effhrnet.backbone`` (the stem and the MBConv
+stack) with ``litepose.effhrnet.se`` inside it for each squeeze-excitation,
+``litepose.hrnet.transition`` for each transition, the stages'
+``litepose.hrnet.branches`` and ``.fuse`` (``run_stage``) and
+``litepose.hrnet.head`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +54,12 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from ..ops.squeeze_excite import squeeze_excite, squeeze_excite_ref
+from ..utils.spans import span
 from . import layers as L
-from .higher_hrnet import (StageSpec, apply_higher_head, make_higher_head, make_stage,
-                           run_stage, stage_from_config)
+from .higher_hrnet import (StageSpec, apply_higher_head, hrnet_pairs, make_higher_head,
+                           make_stage, run_stage, stage_from_config)
 
 # EfficientNet-B0 block settings: (expand, channels, repeats, stride, kernel)
 # (copy of litepose_tpu/models/efficient_hrnet.py:EFFNET_SETTINGS)
@@ -166,7 +192,8 @@ class Swish(nn.Module):
 
 
 class ConvBNSwish(nn.Sequential):
-    """``Sequential(ZeroPad2d, conv, BN, Swish)`` with SAME padding."""
+    """``Sequential(ZeroPad2d, conv, BN, Swish)`` with SAME padding: the pair
+    as ``layers.conv_bn`` given the ``ZeroPad2d``'s pad."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
         (pt, pb), (pl, pr) = _same_pad(k, stride)
@@ -175,15 +202,17 @@ class ConvBNSwish(nn.Sequential):
                          L.bn2d(cout), Swish())
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = L.conv(F.pad(x.to(dtype), self[0].padding), self[1], dtype)
-        return swish(L.batch_norm(y, self[2]))
+        return L.conv_bn(x, self[1], self[2], dtype, "silu", pad=self[0].padding)
 
 
 class SqueezeExcitation(nn.Module):
     """``se``: ``Sequential(AdaptiveAvgPool2d, conv 1x1 (bias), Swish, conv
     1x1 (bias), Sigmoid)``; the mean in fp32 (float64 for a float64
     activation, which the JAX block, whose parity runs are fp32, never
-    sees), the rest in the activation dtype, as the JAX block."""
+    sees), the rest in the activation dtype, as the JAX block
+    (``ops.squeeze_excite.squeeze_excite_ref``).  At bf16 eval with no
+    gradient to carry, the op ``squeeze_excite`` (two kernels on a card),
+    which may write its output into ``y``."""
 
     def __init__(self, hidden: int, reduced: int):
         super().__init__()
@@ -191,15 +220,19 @@ class SqueezeExcitation(nn.Module):
                                 Swish(), nn.Conv2d(reduced, hidden, 1), nn.Sigmoid())
 
     @staticmethod
-    def _linear(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-        w = conv.weight.to(x.dtype).flatten(1)
-        return x @ w.t() + conv.bias.to(x.dtype)
+    def _linear(conv: nn.Conv2d, dtype: torch.dtype):
+        """(weight (out, in), bias) in ``dtype``: the stored copies at eval."""
+        w = L.weight(conv, dtype)
+        b = L.stored(conv, "cast_b")
+        return w.view(w.shape[0], -1), conv.bias.to(dtype) if b is None else b
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        se = y.to(torch.promote_types(y.dtype, torch.float32)).mean(dim=(2, 3)).to(y.dtype)
-        se = swish(self._linear(se, self.se[1]))
-        se = self._linear(se, self.se[3])
-        return y * torch.sigmoid(se)[:, :, None, None]
+        with span("litepose.effhrnet.se"):
+            args = (*self._linear(self.se[1], y.dtype), *self._linear(self.se[3], y.dtype))
+            if (not self.training and y.dtype == torch.bfloat16
+                    and not (torch.is_grad_enabled() and y.requires_grad)):
+                return squeeze_excite(y, *args)
+            return squeeze_excite_ref(y, *args)
 
 
 class MBConv(nn.Module):
@@ -222,13 +255,18 @@ class MBConv(nn.Module):
         y = x
         for c in convs:
             y = c(y, dtype)
-        y = L.batch_norm(L.conv(se(y), project, dtype), bn)
-        return y + x if self.residual else y
+        return L.conv_bn(se(y), project, bn, dtype, residual=x if self.residual else None)
+
+    def pairs(self):
+        *convs, _, project, bn = self.conv
+        return [(c[1], c[2]) for c in convs] + [(project, bn)]
 
 
-class EfficientHRNet(nn.Module):
+class EfficientHRNet(L.FoldsBN, nn.Module):
     """Forward: ``x`` (B, 3, H, W) normalized images -> [(B, J+T, H/4, W/4),
-    (B, J, H/2, W/2)] in ``out_dtype``; ``compute_dtype`` as HigherHRNet's."""
+    (B, J, H/2, W/2)] in ``out_dtype``; ``compute_dtype`` as HigherHRNet's.
+    ``eval()`` folds the BNs (``fold_bn_``); after writing weights into a
+    model in eval mode, call ``fold_bn_()`` again."""
 
     def __init__(self, spec: EffHRNetSpec, compute_dtype: torch.dtype = torch.bfloat16,
                  out_dtype: torch.dtype = torch.float32):
@@ -262,27 +300,37 @@ class EfficientHRNet(nn.Module):
             [_scale(c, sf) for c in spec.deconv_channels[:spec.num_deconvs]],
             spec.deconv_kernels, spec.deconv_num_basic_blocks, spec.cat_output)
 
+    def _transitions(self) -> List[nn.Sequential]:
+        return [m for name, m in self.named_children() if name.startswith("trans")]
+
+    def _conv_bn_pairs(self):
+        pairs = []
+        for block in self.features:
+            pairs += [(block[1], block[2])] if isinstance(block, ConvBNSwish) else block.pairs()
+        return pairs + [(t[0], t[1]) for t in self._transitions()] + hrnet_pairs(self)
+
     def _trans(self, t: int, xs: List[torch.Tensor], dtype) -> List[torch.Tensor]:
-        outs = []
-        for m, x in enumerate(xs, start=1):
-            conv, bn, _ = getattr(self, f"trans{t}_branch{m}")
-            outs.append(torch.relu(L.batch_norm(L.conv_bias(x, conv, dtype), bn)))
-        return outs
+        """Each branch's 3x3 conv (with its bias), BN and ReLU."""
+        with span("litepose.hrnet.transition"):
+            return [L.conv_bn(x, *getattr(self, f"trans{t}_branch{m}")[:2], dtype, "relu")
+                    for m, x in enumerate(xs, start=1)]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         dt = self.compute_dtype
         ends = self.spec.taps()
         taps = []
-        y = x
-        for i, block in enumerate(self.features):
-            y = block(y, dt)
-            if i + 1 in ends:
-                taps.append(y)
+        with span("litepose.effhrnet.backbone"):
+            y = x
+            for i, block in enumerate(self.features):
+                y = block(y, dt)
+                if i + 1 in ends:
+                    taps.append(y)
         ys = run_stage(self.stage2, self._trans(1, taps[:2], dt), dt)
         ys = run_stage(self.stage3, self._trans(2, [ys[-2], ys[-1], taps[2]], dt), dt)
         ys = run_stage(self.stage4, self._trans(3, [ys[-3], ys[-2], ys[-1], taps[3]], dt), dt)
-        return apply_higher_head(self.final_layers, self.deconv_layers, self.spec.cat_output,
-                                 ys[0], dt, self.out_dtype)
+        with span("litepose.hrnet.head"):
+            return apply_higher_head(self.final_layers, self.deconv_layers,
+                                     self.spec.cat_output, ys[0], dt, self.out_dtype)
 
 
 def init_efficient_hrnet(spec: EffHRNetSpec, generator: torch.Generator,

@@ -33,9 +33,8 @@ transposed conv's weights and the head BN's affine are stored once in
 ``compute_dtype`` with the folded pairs (``layers.prepare_eval_``), so the
 forward casts none.  On a card the eval forward runs channels-last, cuDNN's
 layout (``eval_layout``), and the stored weights are kept so.  In training
-every BN takes batch statistics, as JAX's.
-EfficientHRNet shares the stages and the head but never folds: a pair with
-no folded weight keeps the BN unfolded after its conv, as the JAX module.
+every BN takes batch statistics, as JAX's.  EfficientHRNet shares the
+stages and the head (``hrnet_pairs``) and folds them as this model does.
 
 The forward opens ``litepose.hrnet.*`` spans (``utils/spans.py``): the
 stem, each transition, each module's branches and its fuse, and the head.
@@ -48,7 +47,6 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.epilogue import unfused
 from ..utils.spans import span
 from . import layers as L
 
@@ -119,19 +117,6 @@ def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1, bias: bool = False)
     return nn.Conv2d(cin, cout, k, stride, k // 2, bias=bias)
 
 
-def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
-            act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """conv, BN, ``residual`` added where given (``layers.conv_bn``'s
-    contract), then ``act`` ("none", "relu6", "relu"): a pair that
-    ``FoldsBN.fold_bn_`` folded as ``layers.conv_bn`` (at bf16 eval the
-    bias, residual and activation in one kernel after the conv); an unfolded
-    one (training, EfficientHRNet) as the JAX ``_convbn``, the BN after the
-    conv (``layers.batch_norm``)."""
-    if hasattr(conv, "folded_w"):
-        return L.conv_bn(x, conv, bn, dtype, act, residual)
-    return unfused(L.batch_norm(L.conv(x, conv, dtype), bn), None, residual, act)
-
-
 class ConvBN(nn.Sequential):
     """conv + BN (+ ReLU or ReLU6); children ``0`` conv, ``1`` BN, as the
     reference's ``Sequential``s of fuse layers, transitions and 0-block
@@ -147,7 +132,7 @@ class ConvBN(nn.Sequential):
                 act: Optional[str] = None) -> torch.Tensor:
         """``conv_bn`` of the pair; ``act`` in place of the layer's own (a
         fuse row's ReLU, folded into its last term)."""
-        return conv_bn(x, self[0], self[1], dtype, act or self.act or "none", residual)
+        return L.conv_bn(x, self[0], self[1], dtype, act or self.act or "none", residual)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
@@ -157,7 +142,7 @@ def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
 
 
 def _residual(x: torch.Tensor, down: Optional[nn.Sequential], dtype) -> torch.Tensor:
-    return x if down is None else conv_bn(x, down[0], down[1], dtype)
+    return x if down is None else L.conv_bn(x, down[0], down[1], dtype)
 
 
 class BasicBlock(nn.Module):
@@ -170,8 +155,8 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, cout, stride)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
-        return conv_bn(y, self.conv2, self.bn2, dtype, "relu",
+        y = L.conv_bn(x, self.conv1, self.bn1, dtype, "relu")
+        return L.conv_bn(y, self.conv2, self.bn2, dtype, "relu",
                        _residual(x, self.downsample, dtype))
 
     def pairs(self):
@@ -191,9 +176,9 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, cout, stride)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv_bn(x, self.conv1, self.bn1, dtype, "relu")
-        y = conv_bn(y, self.conv2, self.bn2, dtype, "relu")
-        return conv_bn(y, self.conv3, self.bn3, dtype, "relu",
+        y = L.conv_bn(x, self.conv1, self.bn1, dtype, "relu")
+        y = L.conv_bn(y, self.conv2, self.bn2, dtype, "relu")
+        return L.conv_bn(y, self.conv3, self.bn3, dtype, "relu",
                        _residual(x, self.downsample, dtype))
 
     def pairs(self):
@@ -389,15 +374,7 @@ class HigherHRNet(L.FoldsBN, nn.Module):
             spec.deconv_num_basic_blocks, spec.cat_output)
 
     def _conv_bn_pairs(self):
-        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2)]
-        for m in self.modules():
-            if isinstance(m, (BasicBlock, Bottleneck)):
-                pairs += m.pairs()
-                if m.downsample is not None:
-                    pairs.append((m.downsample[0], m.downsample[1]))
-            elif isinstance(m, ConvBN):
-                pairs.append((m[0], m[1]))
-        return pairs
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2)] + hrnet_pairs(self)
 
     @staticmethod
     def _transition(pre: List[int], cur: List[int]) -> nn.ModuleList:
@@ -419,8 +396,8 @@ class HigherHRNet(L.FoldsBN, nn.Module):
         if x.is_cuda and not self.training:
             x = x.contiguous(memory_format=self.eval_layout)  # outputs stay in it
         with span("litepose.hrnet.stem"):
-            y = conv_bn(x, self.conv1, self.bn1, dt, "relu")
-            y = conv_bn(y, self.conv2, self.bn2, dt, "relu")
+            y = L.conv_bn(x, self.conv1, self.bn1, dt, "relu")
+            y = L.conv_bn(y, self.conv2, self.bn2, dt, "relu")
             for block in self.layer1:
                 y = block(y, dt)
         ys = [y]
@@ -431,6 +408,21 @@ class HigherHRNet(L.FoldsBN, nn.Module):
         with span("litepose.hrnet.head"):
             return apply_higher_head(self.final_layers, self.deconv_layers,
                                      self.spec.cat_output, ys[0], dt, self.out_dtype)
+
+
+def hrnet_pairs(model: nn.Module) -> List[Tuple[nn.Conv2d, nn.BatchNorm2d]]:
+    """The conv-BN pairs of ``model``'s HRNet blocks: every BasicBlock's and
+    Bottleneck's, their downsamples' and every ``ConvBN``'s (transitions,
+    fuse layers, 0-block branches)."""
+    pairs = []
+    for m in model.modules():
+        if isinstance(m, (BasicBlock, Bottleneck)):
+            pairs += m.pairs()
+            if m.downsample is not None:
+                pairs.append((m.downsample[0], m.downsample[1]))
+        elif isinstance(m, ConvBN):
+            pairs.append((m[0], m[1]))
+    return pairs
 
 
 def apply_transition(layers: nn.ModuleList, prev: List[torch.Tensor],

@@ -14,16 +14,21 @@ Numerics follow the JAX layer library rather than plain ``nn.Sequential``:
 * At eval a BN after a conv folds into the conv as ``conv_bn`` does
   (``litepose_tpu/models/layers.py:191-204``): ``w' = w * rsqrt(var + eps)
   * scale`` in fp32, only then cast to the compute dtype; the bias
-  ``beta - mean * inv`` is added in the activation dtype.  Folding in
-  another order gives other bf16 weights than the JAX model.  A model that
-  folds (``FoldsBN``) stores every constant of its eval forward once
-  (``prepare_eval_``), so the forward casts no weight and derives no
-  affine.
+  ``beta - mean * inv`` (``beta + (b - mean) * inv`` for a conv with its own
+  bias ``b``, EfficientHRNet's transitions) is added in the activation
+  dtype.  Folding in another order gives other bf16 weights than the JAX
+  model.  A model that folds (``FoldsBN``) stores every constant of its
+  eval forward once (``prepare_eval_``), so the forward casts no weight and
+  derives no affine.
+* The activations: none, ReLU6 (``torch.clamp``), ReLU (``torch.relu``)
+  and Swish (``x * torch.sigmoid(x)``, EfficientHRNet's backbone), as
+  ``ops.depthwise.activation`` applies them.
 * At bf16 eval the depthwise conv of a folded pair (k 3, 5 or 7, stride 1
-  or 2, padding k // 2) goes to the port's own kernel
-  (``ops.depthwise.depthwise_conv``, ``csrc/depthwise_conv.cu``), which
-  adds the bias and applies the ReLU6 / ReLU after it in its epilogue: one
-  launch where ``F.conv2d``, the bias add and the clamp were three.  It
+  or 2, padding k // 2, or TensorFlow's SAME at stride 2) goes to the
+  port's own kernel (``ops.depthwise.depthwise_conv``,
+  ``csrc/depthwise_conv.cu``), which adds the bias and applies the
+  activation after it in its epilogue: one launch where ``F.conv2d``, the
+  bias add and the clamp were three.  It
   rounds as that sequence does; only the order of the fp32 sum of a
   window's products differs.  On the CPU the op runs that sequence itself,
   so a CPU forward keeps its bits; fp32, training and dense convs keep
@@ -61,8 +66,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..arch import make_divisible
+from ..ops import dense_conv
 from ..ops.dense_conv import CHANNEL_STEP, MAX_COUT, conv3x3_bn_act, within_limits
-from ..ops.depthwise import KERNELS, STRIDES, depthwise_conv
+from ..ops.depthwise import KERNELS, STRIDES, depthwise_conv, pads
 from ..ops.epilogue import conv_epilogue, unfused
 from ..parallel.mesh import sync_batch_stats, world
 
@@ -81,9 +87,12 @@ def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def fold_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype):
-    """(w', bias) of conv + eval BN, in the JAX fold order."""
+    """(w', bias) of conv + eval BN, in the JAX fold order; a conv's own
+    bias ``b`` folds in as ``beta + (b - mean) * inv``, in fp32."""
     with torch.no_grad():
         inv, bias = bn_affine(bn)
+        if conv.bias is not None:
+            bias = bn.bias.float() + (conv.bias.float() - bn.running_mean.float()) * inv
         return (conv.weight.float() * inv[:, None, None, None]).to(dtype), bias
 
 
@@ -108,18 +117,29 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def fused_depthwise(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+def fused_depthwise(conv: nn.Conv2d, x: torch.Tensor, pad=None) -> bool:
     """Whether an eval ``conv_bn`` of ``conv`` on ``x`` (already in the
     compute dtype) takes the depthwise kernel: a bf16 depthwise conv with a
-    square kernel of 3, 5 or 7, stride 1 or 2 both ways, padding k // 2,
-    no dilation, and no gradient to carry to ``x`` (the op has none)."""
-    k = conv.kernel_size[0]
-    return (x.dtype == torch.bfloat16
+    square kernel of 3, 5 or 7, stride 1 or 2 both ways, no dilation, and
+    no gradient to carry to ``x`` (the op has none); its padding k // 2, or
+    where ``pad`` (left, right, top, bottom) is given in place of it, the
+    same pad p before the plane both ways, one the kernel takes (k // 2, or
+    k // 2 - 1 at stride 2: SAME), and enough after it to give the
+    kernel's (H - 1) // stride + 1 outputs."""
+    k, s = conv.kernel_size[0], conv.stride[0]
+    if not (x.dtype == torch.bfloat16
             and conv.groups == conv.in_channels == conv.out_channels
             and conv.kernel_size == (k, k) and k in KERNELS
-            and conv.stride[0] == conv.stride[1] and conv.stride[0] in STRIDES
-            and conv.padding == (k // 2, k // 2) and conv.dilation == (1, 1)
-            and not (x.requires_grad and torch.is_grad_enabled()))
+            and conv.stride[1] == s and s in STRIDES and conv.dilation == (1, 1)
+            and not (x.requires_grad and torch.is_grad_enabled())):
+        return False
+    if pad is None:
+        return conv.padding == (k // 2, k // 2)
+    left, right, top, bottom = pad
+    H, W = x.shape[-2:]
+    return (left == top and top in pads(k, s)
+            and (H + top + bottom - k) // s == (H - 1) // s
+            and (W + left + right - k) // s == (W - 1) // s)
 
 
 def conv3x3_kernel_takes(conv: nn.Conv2d) -> bool:
@@ -168,33 +188,53 @@ def fused_epilogue(y: torch.Tensor, residual: Optional[torch.Tensor]) -> bool:
 
 
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
-            act: str = "none", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """conv followed by BN, then ``residual`` added where given (of the
-    output's shape, or a sum at 2, 4 or 8 times its plane that the output is
-    nearest-upsampled into: a HigherHRNet fuse), then ``act`` ("none",
-    "relu6" as ``torch.clamp``, "relu"): batch statistics in training; at
-    eval the weights ``FoldsBN.fold_bn_`` folded once, else folded here; a
-    depthwise conv in bf16 as one kernel with its bias and activation
-    (``fused_depthwise``), a channels-last dense 3x3 stride-1 conv in bf16
-    as one kernel with its epilogue (``fused_conv3x3``), any other conv's
-    epilogue in bf16 as one kernel after the conv (``fused_epilogue``);
-    elsewhere the epilogue is ``ops.epilogue.unfused``, the ATen sequence
-    the kernels equal."""
+            act: str = "none", residual: Optional[torch.Tensor] = None,
+            pad: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+    """conv (and its own bias, where it has one) followed by BN, then
+    ``residual`` added where given (of the output's shape, or a sum at 2, 4
+    or 8 times its plane that the output is nearest-upsampled into: a
+    HigherHRNet fuse), then ``act`` (``ops.depthwise.ACTS``): batch
+    statistics in training; at eval the weights ``FoldsBN.fold_bn_`` folded
+    once, else folded here; a depthwise conv in bf16 as one kernel with its
+    bias and activation (``fused_depthwise``), a channels-last dense 3x3
+    stride-1 conv in bf16 as one kernel with its epilogue
+    (``fused_conv3x3``), any other conv's epilogue in bf16 as one kernel
+    after the conv (``fused_epilogue``); elsewhere the epilogue is
+    ``ops.epilogue.unfused``, the ATen sequence the kernels equal.
+
+    ``pad``: zero padding (left, right, top, bottom, as ``F.pad`` takes it)
+    in place of the conv's own (EfficientHRNet's TensorFlow SAME): an
+    explicit pad in training; at eval the depthwise kernel's pad where it
+    takes it, the conv's own padding where ``pad`` is even on both axes,
+    else an explicit pad."""
     # each step rebinds y, so no step holds the tensor before it
     if bn.training:
-        y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+        x = x.to(dtype)
+        if pad is not None:
+            x = F.pad(x, pad)
+        y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride,
                      conv.padding, conv.dilation, conv.groups)
+        if conv.bias is not None:
+            y = y + conv.bias.to(y.dtype)[:, None, None]
         return unfused(bn_train(y, bn), None, residual, act)
     if hasattr(conv, "folded_w"):
         w, bias = conv.folded_w, conv.folded_b
     else:
         w, bias = fold_bn(conv, bn, dtype)
     x = x.to(dtype)
-    if residual is None and fused_depthwise(conv, x):
+    padding = conv.padding
+    if pad is not None:
+        if residual is None and fused_depthwise(conv, x, pad):
+            return depthwise_conv(x, w, bias, conv.stride[0], act, pad[2])
+        if pad[0] == pad[1] and pad[2] == pad[3]:
+            padding = (pad[2], pad[0])
+        else:
+            x, padding = F.pad(x, pad), (0, 0)
+    elif residual is None and fused_depthwise(conv, x):
         return depthwise_conv(x, w, bias, conv.stride[0], act)
-    if fused_conv3x3(conv, x, residual):
+    if padding == conv.padding and act in dense_conv.ACTS and fused_conv3x3(conv, x, residual):
         return conv3x3_bn_act(x, w, bias, residual, act)
-    y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    y = F.conv2d(x, w, None, conv.stride, padding, conv.dilation, conv.groups)
     if fused_epilogue(y, residual):
         return conv_epilogue(y, bias, residual, act)  # y is conv_bn's own: written in place
     return unfused(y, bias, residual, act)
@@ -292,9 +332,9 @@ def prepare_eval_(model: nn.Module, pairs, dtype: torch.dtype,
 class FoldsBN:
     """``fold_bn_`` and ``train`` for an ``nn.Module`` whose ``conv_bn``
     pairs ``_conv_bn_pairs()`` lists and whose convs run in
-    ``compute_dtype`` (LitePose, LitePose-ResNet, HigherHRNet).
-    ``eval_layout``: the memory format its eval forward runs in on a card,
-    in which the stored weights are kept there."""
+    ``compute_dtype`` (LitePose, LitePose-ResNet, HigherHRNet,
+    EfficientHRNet).  ``eval_layout``: the memory format its eval forward
+    runs in on a card, in which the stored weights are kept there."""
 
     eval_layout = torch.contiguous_format
 

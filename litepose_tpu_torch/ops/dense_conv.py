@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from . import library  # also registers torch.ops.litepose.*
-from .depthwise import ACTS
 from .epilogue import unfused
 
+ACTS = ("none", "relu6", "relu")  # the first three of ops.depthwise.ACTS: no Swish
 CHANNEL_STEP = 16  # Cin and Cout are multiples of it
 MAX_COUT = 512  # kMaxCout in the kernel: the bias in shared memory
 MAX_WIDTH = 1024  # kMaxWidth: two stages of a 16-channel slice still fit

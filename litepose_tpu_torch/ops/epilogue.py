@@ -1,7 +1,7 @@
 """The epilogue of a folded dense conv + eval BN: the bias, an optional
 residual (of the output's shape, or a finer sum the output is
-nearest-upsampled into) and the activation, as one kernel
-(``csrc/conv_epilogue.cu``, K7).
+nearest-upsampled into) and the activation (none, ReLU6, ReLU or Swish), as
+one kernel (``csrc/conv_epilogue.cu``, K7).
 
 No TPU kernel stands behind it: the JAX package leaves the conv to
 ``lax.conv_general_dilated`` and the bias, the residual and the activation
@@ -11,8 +11,8 @@ counted by ``conv_epilogue.launches``, and runs the plain twin
 ``torch.ops.litepose.conv_epilogue`` as ``library.call`` calls it.  The
 twin is ``unfused``, the sequence the layers run where the kernel does not
 (``+ bias.to(dtype)``, then the nearest upsample and ``+ residual``, then
-``torch.clamp`` or ``torch.relu``), so a CPU forward keeps its bits; the
-kernel equals it on the card bit for bit.
+``torch.clamp``, ``torch.relu`` or ``x * torch.sigmoid(x)``), so a CPU
+forward keeps its bits; the kernel equals it on the card bit for bit.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The port's kernels as registered torch ops, ``torch.ops.litepose.*``:
-the decode kernels and the forward's depthwise conv, dense 3x3 conv and
-conv epilogue.
+the decode kernels and the forward's depthwise conv, dense 3x3 conv, conv
+epilogue and squeeze-excitation.
 
 A ctypes call is opaque to ``torch.export``; a registered op lands in an
 exported program as one graph node, which a loaded artifact dispatches by
@@ -28,13 +28,14 @@ node under tracing.  Each op has three implementations:
   ``ops.refine.refine_argmax.launches``, ``ops.nms.nms_suppress.launches``,
   ``ops.depthwise.depthwise_conv.launches``,
   ``ops.epilogue.conv_epilogue.launches``,
-  ``ops.dense_conv.conv3x3_bn_act.launches``),
+  ``ops.dense_conv.conv3x3_bn_act.launches``,
+  ``ops.squeeze_excite.squeeze_excite.launches``, two a call),
   so an artifact's launches count too (under a lock: shard threads launch
   at once).  The kernels are built and loaded at the first launch, by one
   thread.  A failed build or launch raises;
 - CPU: the plain twin (``nms_topk_ref``, ``match_by_tag``,
   ``refine_argmax_ref``, ``nms_suppress_ref``, ``depthwise_conv_ref``,
-  ``conv_epilogue_ref``, ``conv3x3_bn_act_ref``);
+  ``conv_epilogue_ref``, ``conv3x3_bn_act_ref``, ``squeeze_excite_ref``);
 - fake: the output shapes and dtypes, for tracing.
 
 =====================  ===  ==========================  ================================
@@ -49,13 +50,15 @@ op                     #    kernel                      TPU kernel
 ``depthwise_conv``     K6   ``csrc/depthwise_conv.cu``  none (``lax.conv_general_dilated``)
 ``conv_epilogue``      K7   ``csrc/conv_epilogue.cu``   none (XLA's fusion after the conv)
 ``conv3x3_bn_act``     K8   ``csrc/dense_conv3x3.cu``   none (``lax.conv_general_dilated``)
+``squeeze_excite``     SE   ``csrc/squeeze_excite.cu``  none (XLA's mean, dots, multiply)
 =====================  ===  ==========================  ================================
 
 The grouping configuration crosses as plain arguments (the joint order as
 ``int[]``, thresholds as floats that reach the kernel as ``c_float``).
 Shape and dtype checks stay in the wrappers (``ops/topk.py``,
 ``ops/group.py``, ``ops/refine.py``, ``ops/nms.py``,
-``ops/depthwise.py``, ``ops/epilogue.py``, ``ops/dense_conv.py``); what
+``ops/depthwise.py``, ``ops/epilogue.py``, ``ops/dense_conv.py``,
+``ops/squeeze_excite.py``); what
 depends on the card (limits of a kernel's geometry, contiguity,
 alignment) is checked here.  This module imports nothing of the package at import time, so a
 process that loads an artifact imports it, and through it the twins,
@@ -90,10 +93,12 @@ SCHEMAS = {
     "group_hungarian": f"({_GROUP_ARGS}) -> (Tensor, Tensor)",
     "refine_argmax": "(Tensor need, Tensor prev, Tensor det, Tensor tag) -> Tensor",
     "heatmap_nms": "(Tensor det, int nms_kernel) -> Tensor",
-    "depthwise_conv": "(Tensor x, Tensor w, Tensor bias, int stride, str act) -> Tensor",
+    "depthwise_conv": ("(Tensor x, Tensor w, Tensor bias, int stride, str act, int pad=-1) "
+                       "-> Tensor"),
     "conv_epilogue": "(Tensor y, Tensor bias, Tensor? residual, str act) -> Tensor",
     "conv3x3_bn_act": ("(Tensor x, Tensor w, Tensor bias, Tensor? residual, str act) "
                        "-> Tensor"),
+    "squeeze_excite": "(Tensor y, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
 }
 OPS = tuple(SCHEMAS)
 
@@ -484,13 +489,16 @@ _register("heatmap_nms", heatmap_nms_cuda, _heatmap_nms_twin, _heatmap_nms_fake)
 # -- K6: the depthwise conv of a folded conv + BN, bias and activation fused ---
 
 
-DEPTHWISE_ACTS = ("none", "relu6", "relu")  # kActNone, kActRelu6, kActRelu in the kernel
+# kActNone, kActRelu6, kActRelu, kActSilu in csrc/conv_common.cuh
+DEPTHWISE_ACTS = ("none", "relu6", "relu", "silu")
 
 
 @_on_its_device
-def depthwise_conv_cuda(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+def depthwise_conv_cuda(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str,
+                        pad: int = -1) -> Tensor:
     """K6: x (B, C, H, W) bf16, w (C, 1, k, k) bf16, bias (C) fp32 ->
-    act(conv + bias) (B, C, Ho, Wo) bf16, in one launch."""
+    act(conv + bias) (B, C, Ho, Wo) bf16, in one launch; ``pad`` -1 is k //
+    2."""
     from .depthwise import depthwise_conv as wrapper
 
     _contiguous("x, w and bias", x, w, bias)
@@ -502,21 +510,24 @@ def depthwise_conv_cuda(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: st
     out = torch.empty((B, C, (H - 1) // stride + 1, (W - 1) // stride + 1), dtype=x.dtype,
                       device=x.device)
     if out.numel():
+        k = w.shape[-1]
         err = lib.lp_depthwise_conv(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                                    B, C, H, W, w.shape[-1], stride, DEPTHWISE_ACTS.index(act),
-                                    _stream(x))
+                                    B, C, H, W, k, stride, k // 2 if pad == -1 else pad,
+                                    DEPTHWISE_ACTS.index(act), _stream(x))
         build.check(err, "depthwise_conv")
         count_launch(wrapper)
     return out
 
 
-def _depthwise_conv_twin(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+def _depthwise_conv_twin(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str,
+                         pad: int = -1) -> Tensor:
     from .depthwise import depthwise_conv_ref
 
-    return depthwise_conv_ref(x, w, bias, stride, act)
+    return depthwise_conv_ref(x, w, bias, stride, act, pad)
 
 
-def _depthwise_conv_fake(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str) -> Tensor:
+def _depthwise_conv_fake(x: Tensor, w: Tensor, bias: Tensor, stride: int, act: str,
+                         pad: int = -1) -> Tensor:
     B, C, H, W = x.shape
     return x.new_empty((B, C, (H - 1) // stride + 1, (W - 1) // stride + 1))
 
@@ -649,3 +660,89 @@ def _conv3x3_bn_act_fake(x: Tensor, w: Tensor, bias: Tensor, residual, act: str)
 
 
 _register("conv3x3_bn_act", conv3x3_bn_act_cuda, _conv3x3_bn_act_twin, _conv3x3_bn_act_fake)
+
+
+# -- the squeeze-excitation of an MBConv block: mean, gate, scale --------------
+
+
+@functools.lru_cache(maxsize=None)
+def _squeeze_excite():
+    """``ops.squeeze_excite`` (the contract, the wrapper and its counter),
+    imported once."""
+    from . import squeeze_excite
+
+    return squeeze_excite
+
+
+_SE_ARRIVED = {}  # (device, stream) -> the gate kernel's per-image counters, left at 0
+
+
+def _se_counters(y: Tensor) -> Tensor:
+    """At least B zero counters for launches on ``y``'s current stream: a
+    launch leaves them at 0, and launches on one stream run in turn."""
+    key = (y.get_device(), _stream(y))
+    arrived = _SE_ARRIVED.get(key)
+    if arrived is None or arrived.numel() < y.shape[0]:
+        arrived = torch.zeros(max(y.shape[0], 64), dtype=torch.int32, device=y.device)
+        _SE_ARRIVED[key] = arrived
+    return arrived
+
+
+def _squeeze_excite_cuda(y: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                         into_y: bool) -> Tensor:
+    """y (B, C, H, W) bf16 NCHW, w1 (R, C), b1 (R), w2 (C, R), b2 (C) bf16 ->
+    y scaled by its gate, bf16, in two launches (the gate, the scale);
+    written into y itself where ``into_y``, else into a new tensor."""
+    se = _squeeze_excite()
+    se.contract(y, w1, b1, w2, b2)
+    _contiguous("y, w1, b1, w2 and b2", y, w1, b1, w2, b2)
+    if y.dtype != torch.bfloat16:
+        raise TypeError(f"the squeeze-excitation kernels take bf16, got {y.dtype}")
+    B, C, H, W = y.shape
+    if y.numel() >= 2**31 or B > 65535 or C + w1.shape[0] > 12288:
+        raise ValueError(f"the squeeze-excitation kernels take fewer than 2^31 elements, at "
+                         f"most 65535 images and C + R at most 12288, got {tuple(y.shape)} "
+                         f"and R {w1.shape[0]}")
+    out = y if into_y else torch.empty_like(y)
+    if y.numel():
+        build, lib = _kernels()
+        scratch = torch.empty(2 * B * C, dtype=torch.float32, device=y.device)
+        err = lib.lp_squeeze_excite(y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                    b2.data_ptr(), scratch.data_ptr(),
+                                    scratch.data_ptr() + 4 * B * C, _se_counters(y).data_ptr(),
+                                    out.data_ptr(), B, C, H, W, w1.shape[0], _stream(y))
+        build.check(err, "squeeze_excite")
+        count_launch(se.squeeze_excite)
+        count_launch(se.squeeze_excite)
+    return out
+
+
+@_on_its_device
+def squeeze_excite_cuda(y: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor) -> Tensor:
+    """The squeeze-excitation through the dispatcher: a new tensor out."""
+    return _squeeze_excite_cuda(y, w1, b1, w2, b2, False)
+
+
+@_on_its_device
+def squeeze_excite_into_y(y: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor) -> Tensor:
+    """The squeeze-excitation as ``call`` runs it on an eager card tensor:
+    written into y itself (the wrapper's caller gives y up)."""
+    return _squeeze_excite_cuda(y, w1, b1, w2, b2, True)
+
+
+def _squeeze_excite_twin(y: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor) -> Tensor:
+    from .squeeze_excite import contract, squeeze_excite_ref
+
+    contract(y, w1, b1, w2, b2)
+    return squeeze_excite_ref(y, w1, b1, w2, b2)
+
+
+def _squeeze_excite_fake(y: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor) -> Tensor:
+    from .squeeze_excite import contract
+
+    contract(y, w1, b1, w2, b2)
+    return torch.empty_like(y)
+
+
+_register("squeeze_excite", squeeze_excite_cuda, _squeeze_excite_twin, _squeeze_excite_fake,
+          eager=squeeze_excite_into_y)

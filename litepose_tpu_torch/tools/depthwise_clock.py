@@ -56,16 +56,23 @@ ODD_SHAPES = ((2, 3, 15, 17), (1, 5, 9, 33), (3, 2, 1, 1), (1, 4, 2, 7), (2, 6, 
               (1, 2, 301, 20), (1, 3, 5, 600), (2, 3, 16, 16))
 
 
-def order_ref(x, w, bias, stride: int, act: str):
+def padded(x, k: int, pad: int = -1):
+    """``x`` with ``pad`` zeros before each plane (k // 2 where -1) and k -
+    1 - ``pad`` after, as the twin pads it."""
+    p = k // 2 if pad == -1 else pad
+    return F.pad(x, (p, k - 1 - p) * 2)
+
+
+def order_ref(x, w, bias, stride: int, act: str, pad: int = -1):
     """The kernel's arithmetic in torch: the fp32 window sum in its order,
-    rounded to bf16, plus the bias rounded to bf16, the activation, rounded."""
+    rounded to bf16, plus the bias rounded to bf16, rounded, the activation
+    in bf16."""
     from ..ops.depthwise import activation
 
     B, C, H, W = x.shape
     k = w.shape[-1]
-    p = k // 2
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    xp = F.pad(x.float(), (p, p, p, p))
+    xp = padded(x.float(), k, pad)
     wf = w.float()[:, 0]
     acc = torch.zeros((B, C, Ho, Wo), dtype=torch.float32, device=x.device)
     for dy in range(k):
@@ -73,7 +80,7 @@ def order_ref(x, w, bias, stride: int, act: str):
             win = xp[:, :, dy:dy + (Ho - 1) * stride + 1:stride, dx:dx + (Wo - 1) * stride + 1:stride]
             acc = acc + win * wf[:, dy, dx][:, None, None]
     z = acc.to(torch.bfloat16).float() + bias.to(torch.bfloat16).float()[:, None, None]
-    return activation(z, act).to(torch.bfloat16)
+    return activation(z.to(torch.bfloat16), act)
 
 
 def ulp(v):
@@ -83,15 +90,15 @@ def ulp(v):
     return torch.where(v == 0, torch.zeros_like(v), torch.ldexp(torch.ones_like(v), e - 8))
 
 
-def held(x, w, bias, stride: int, act: str) -> dict:
+def held(x, w, bias, stride: int, act: str, pad: int = -1) -> dict:
     """Run the kernel on one input and hold it to both twins (see the module doc)."""
     from ..ops.depthwise import depthwise_conv, depthwise_conv_ref
 
-    out = depthwise_conv(x, w, bias, stride, act)
-    conv = depthwise_conv(x, w, torch.zeros_like(bias), stride, "none")
-    want = order_ref(x, w, bias, stride, act)
-    twin = depthwise_conv_ref(x, w, bias, stride, act)
-    y = F.conv2d(x, w, None, stride, w.shape[-1] // 2, 1, x.shape[1])
+    out = depthwise_conv(x, w, bias, stride, act, pad)
+    conv = depthwise_conv(x, w, torch.zeros_like(bias), stride, "none", pad)
+    want = order_ref(x, w, bias, stride, act, pad)
+    twin = depthwise_conv_ref(x, w, bias, stride, act, pad)
+    y = F.conv2d(padded(x, w.shape[-1], pad), w, None, stride, 0, 1, x.shape[1])
     o, t, c, yf = out.float(), twin.float(), conv.float(), y.float()
     nan = o.isnan()
     order_ok = torch.equal(nan, want.float().isnan()) and torch.equal(o[~nan], want.float()[~nan])
@@ -102,7 +109,7 @@ def held(x, w, bias, stride: int, act: str) -> dict:
     room = conv_gap + torch.maximum(ulp(o), ulp(t))
     both = ~(nan | t.isnan())
     return {
-        "shape": list(x.shape), "k": w.shape[-1], "stride": stride, "act": act,
+        "shape": list(x.shape), "k": w.shape[-1], "stride": stride, "act": act, "pad": pad,
         "order_equal": bool(order_ok),
         "conv_max_ulps": float(conv_ulps[fine].max()) if fine.any() else 0.0,
         "conv_differ_share": float((conv_gap[fine] > 0).float().mean()) if fine.any() else 0.0,

@@ -14,9 +14,9 @@ identity), one eval forward records the inputs of every ``conv_epilogue``
 
 - the kernel (on a copy of the conv's output, which it overwrites) equals
   the twin (``conv_epilogue_ref``: ``+ bias.to(bf16)``,
-  the upsample and ``+ residual``, ``torch.clamp`` / ``torch.relu``, run by
-  ATen on the card) bit for bit at every one, and with NaN, +-0 and +-inf
-  planted in one;
+  the upsample and ``+ residual``, ``torch.clamp`` / ``torch.relu`` / Swish,
+  run by ATen on the card) bit for bit at every one, and with NaN, +-0 and
+  +-inf planted in one under each activation;
 - one serving call (``process_batch_square``) launches it once a dense
   conv-BN pair (``dense_pairs``: in W48, those the dense 3x3 kernel K8 does
   not take with their epilogue);
@@ -46,6 +46,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..ops.depthwise import ACTS
 
 REPO = Path(__file__).resolve().parents[2]
 PEAK_BYTES_PER_S = 3.35e12
@@ -245,8 +247,7 @@ def checked(calls, log) -> dict:
     log(f"  bit-equal to the twin at every epilogue: {'yes' if not bad else bad[:3]}; kinds "
         f"{kinds}")
     y, bias, res, _ = next(((y, b, r, a) for y, b, r, a in calls if r is not None), calls[0])
-    plants = [held(*planted(y, bias, res, seed=i), a) for i, a in enumerate(
-        ("none", "relu6", "relu"))]
+    plants = [held(*planted(y, bias, res, seed=i), a) for i, a in enumerate(ACTS)]
     log(f"  NaN, +-0, +-inf planted at {tuple(y.shape)}: "
         f"{[(p['equal'], p['nan'], p['zeros']) for p in plants]}")
     return {"equal": not bad and all(p["equal"] and p["nan"] > 0 for p in plants),

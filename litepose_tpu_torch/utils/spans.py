@@ -1,5 +1,5 @@
 """Named ranges on ``torch.profiler``'s own clock, for the serving engine
-and the sections of a HigherHRNet forward.
+and the sections of a HigherHRNet or EfficientHRNet forward.
 
 ``span(name, args)`` is ``torch.profiler.record_function(name, args)``
 while a profiler is recording, and one shared no-op context otherwise:
@@ -10,7 +10,8 @@ written out with the rest of the trace (``export_chrome_trace``); nothing
 here keeps or exports them.
 
 ``SPANS`` names every span the port opens: ``ENGINE_SPANS``
-(``core/engine.py``) and ``HRNET_SPANS`` (``models/higher_hrnet.py``).
+(``core/engine.py``), ``HRNET_SPANS`` (``models/higher_hrnet.py``) and
+``EFFHRNET_SPANS`` (``models/efficient_hrnet.py``).
 
 - ``litepose.engine.call``: one engine call, the root; ``args`` holds the
   engine's call number and the batch size;
@@ -28,10 +29,15 @@ here keeps or exports them.
 - ``litepose.hrnet.branches``: one module's parallel branches;
 - ``litepose.hrnet.fuse``: one module's exchange (the 1x1 conv-BNs with
   their nearest upsampling, the strided 3x3 chains, the sums and ReLUs);
-- ``litepose.hrnet.head``: the final layers and the deconv stage.
+- ``litepose.hrnet.head``: the final layers and the deconv stage;
+- ``litepose.effhrnet.backbone``: EfficientHRNet's stem and MBConv stack,
+  its squeeze-excitations included;
+- ``litepose.effhrnet.se``: one MBConv block's squeeze-excitation, inside
+  the backbone span.
 
 EfficientHRNet's stages are HigherHRNet's modules, so its forward opens
-``branches`` and ``fuse`` too.
+``branches`` and ``fuse`` too, and it opens ``transition`` and ``head``
+with the same meanings.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ ENGINE_SPANS = ("litepose.engine.call", "litepose.engine.upload", "litepose.engi
                 "litepose.engine.decode", "litepose.engine.readback", "litepose.engine.shard")
 HRNET_SPANS = ("litepose.hrnet.stem", "litepose.hrnet.transition", "litepose.hrnet.branches",
                "litepose.hrnet.fuse", "litepose.hrnet.head")
-SPANS = ENGINE_SPANS + HRNET_SPANS
+EFFHRNET_SPANS = ("litepose.effhrnet.backbone", "litepose.effhrnet.se")
+SPANS = ENGINE_SPANS + HRNET_SPANS + EFFHRNET_SPANS
 
 NOOP = contextlib.nullcontext()
 

@@ -54,7 +54,8 @@ def unfused(y, bias, res, act):
     if res is not None:
         f = res.shape[-1] // y.shape[-1]
         t = res + L.upsample_nearest(t, f) if f > 1 else t + res
-    return {"none": t, "relu6": torch.clamp(t, 0.0, 6.0), "relu": torch.relu(t)}[act]
+    return {"none": t, "relu6": torch.clamp(t, 0.0, 6.0), "relu": torch.relu(t),
+            "silu": t * torch.sigmoid(t)}[act]
 
 
 @pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -263,20 +264,56 @@ def test_higher_hrnet_bf16_forward_keeps_its_bits(spy):
     assert spy == []
 
 
-def test_efficient_hrnet_keeps_its_unfolded_path(spy):
+def test_efficient_hrnet_keeps_its_unfolded_path(spy, monkeypatch):
+    """EfficientHRNet keeps its unfolded path in training and at fp32 (no
+    op); at bf16 eval it folds and sends the epilogue of every dense conv-BN
+    pair to the op, one a pair (Swish in the backbone, the projects'
+    residuals, ReLU in the transitions and stages), and each depthwise conv
+    to K6, and its maps keep the bits of the unfused sequence."""
     from litepose_tpu_torch.models.efficient_hrnet import EffHRNetSpec, init_efficient_hrnet
     from litepose_tpu_torch.models.higher_hrnet import StageSpec
 
+    depthwise, k6 = [], L.depthwise_conv
+    monkeypatch.setattr(L, "depthwise_conv", lambda *args: depthwise.append(args[4]) or k6(*args))
     spec = EffHRNetSpec(depth_mult=0.483, width_mult=0.684, scale_factor=-5,
                         stage2=StageSpec(1, 2, "BASIC", (1, 1), (32, 64)),
                         stage3=StageSpec(1, 3, "BASIC", (1, 1, 1), (32, 64, 128)),
                         stage4=StageSpec(1, 4, "BASIC", (1, 1, 1, 1), (32, 64, 128, 256)),
                         deconv_num_basic_blocks=1)
     model = init_efficient_hrnet(spec, torch.Generator().manual_seed(0),
-                                 compute_dtype=torch.bfloat16).eval()
+                                 compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(3)
     with torch.no_grad():
-        model(torch.randn((1, 3, 64, 64), generator=torch.Generator().manual_seed(1)))
-    assert spy == []
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.2, 0.2, generator=g)
+                m.running_mean.uniform_(-0.2, 0.2, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    x = torch.randn((1, 3, 64, 64), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model.train()(x)
+        assert spy == [] and depthwise == []
+        got = model.eval()(x)
+        n = len(spy)
+        with pytest.MonkeyPatch.context() as mp:
+            _unfused_path(mp)
+            mp.setattr(L, "fused_depthwise", lambda conv, x, pad=None: False)
+            want = model(x)
+    pairs = model._conv_bn_pairs()
+    convs = [c for c, _ in pairs if c.groups > 1]
+    assert n == len(spy) == len(pairs) - len(convs) and len(depthwise) == len(convs) > 0
+    assert {a for *_, a in spy} == {"silu", "none", "relu"} and set(depthwise) == {"silu"}
+    assert sum(r is not None for _, r, _ in spy) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    spy.clear()
+    depthwise.clear()
+    fp32 = init_efficient_hrnet(spec, torch.Generator().manual_seed(0),
+                                compute_dtype=torch.float32)
+    with torch.no_grad():
+        fp32.eval()(x)
+    assert spy == [] and depthwise == []
 
 
 def test_export_holds_the_op():

@@ -25,7 +25,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from litepose_tpu_torch.models import layers as L
 from litepose_tpu_torch.ops.dense_conv import MAX_ELEMENTS, conv3x3_bn_act, conv3x3_bn_act_ref
-from litepose_tpu_torch.ops.depthwise import ACTS
+from litepose_tpu_torch.ops.dense_conv import ACTS
 from litepose_tpu_torch.ops.epilogue import unfused
 
 torch.set_num_threads(2)
@@ -238,12 +238,21 @@ def test_w48_forward_routes_its_221_pairs(spy):
                        (64, 64): 4, (256, 48): 1}
 
 
-def test_litepose_and_efficient_hrnet_route_none(spy):
+def test_litepose_and_efficient_hrnet_route_none(spy, monkeypatch):
+    """Auto-S, Auto-XS (NCHW, no 3x3 stride-1 dense pair) and EfficientHRNet
+    route no pair to K8: EfficientHRNet's 3x3 stride-1 pairs (its stages'
+    and transitions') have widths no multiple of 16 at its published scale
+    factors (11..85 at -5 here, 26, 52, 103 and 206 at H-1's -1), so even
+    channels-last, as on a card, they take cuDNN's conv and K7's epilogue
+    (one a dense pair), and its depthwise convs K6 (one each)."""
     from litepose_tpu_torch.arch import get_arch
     from litepose_tpu_torch.models.efficient_hrnet import EffHRNetSpec, init_efficient_hrnet
     from litepose_tpu_torch.models.higher_hrnet import StageSpec
     from litepose_tpu_torch.models.litepose import ModelSpec, init_litepose
 
+    k6, k7, depthwise, epilogue = [], [], L.depthwise_conv, L.conv_epilogue
+    monkeypatch.setattr(L, "depthwise_conv", lambda *args: k6.append(1) or depthwise(*args))
+    monkeypatch.setattr(L, "conv_epilogue", lambda *args: k7.append(1) or epilogue(*args))
     with torch.no_grad():
         for name in ("auto-S", "auto-XS"):
             model = init_litepose(ModelSpec(), get_arch(name), torch.Generator().manual_seed(0),
@@ -256,8 +265,15 @@ def test_litepose_and_efficient_hrnet_route_none(spy):
                             deconv_num_basic_blocks=1)
         model = init_efficient_hrnet(spec, torch.Generator().manual_seed(0),
                                      compute_dtype=torch.bfloat16).eval()
+        k6.clear()
+        k7.clear()
         model(torch.randn((1, 3, 64, 64)).contiguous(memory_format=CL))
     assert spy == []
+    pairs = model._conv_bn_pairs()
+    dense = [c for c, _ in pairs if c.groups == 1]
+    assert len(k6) == len(pairs) - len(dense) > 0 and len(k7) == len(dense)
+    assert any(L.conv3x3_kernel_takes(c) is False and c.kernel_size == (3, 3)
+               and c.stride == (1, 1) for c in dense)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])

@@ -44,11 +44,38 @@ def test_twin_is_the_unfused_sequence(k, stride, act, hw, dtype):
     x, w, bias = _inputs(2, 3, *hw, k, dtype)
     y = F.conv2d(x, w, None, stride, k // 2, 1, 3)
     y = y + bias.to(y.dtype)[:, None, None]
-    want = {"none": y, "relu6": torch.clamp(y, 0.0, 6.0), "relu": torch.relu(y)}[act]
+    want = {"none": y, "relu6": torch.clamp(y, 0.0, 6.0), "relu": torch.relu(y),
+            "silu": y * torch.sigmoid(y)}[act]
     got = depthwise_conv(x, w, bias, stride, act)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(_bits(depthwise_conv_ref(x, w, bias, stride, act)), _bits(want))
+
+
+@pytest.mark.parametrize("hw", [(9, 11), (8, 12)], ids=["odd", "even"])
+@pytest.mark.parametrize("act", ["silu", "relu6"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_same_pad_twin_is_the_padded_sequence(k, act, hw):
+    """At stride 2 the pad k // 2 - 1 (TensorFlow's SAME at even sizes, as
+    EfficientHRNet's module pads before a conv of its own padding 0): the
+    twin is ``F.pad`` with that pad before and k - 1 - pad after, the conv,
+    the bias and the activation, with (H - 1) // 2 + 1 rows; at even sizes
+    it equals the module's SAME pad (pad before, pad + 1 after)."""
+    x, w, bias = _inputs(2, 3, *hw, k, torch.bfloat16)
+    p = k // 2 - 1
+    got = depthwise_conv(x, w, bias, 2, act, p)
+    assert got.shape[-2:] == ((hw[0] - 1) // 2 + 1, (hw[1] - 1) // 2 + 1)
+    y = F.conv2d(F.pad(x, (p, k - 1 - p) * 2), w, None, 2, 0, 1, 3)
+    y = y + bias.to(y.dtype)[:, None, None]
+    want = y * torch.sigmoid(y) if act == "silu" else torch.clamp(y, 0.0, 6.0)
+    assert torch.equal(_bits(got), _bits(want))
+    if hw[0] % 2 == 0 and hw[1] % 2 == 0:
+        y = F.conv2d(F.pad(x, (p, p + 1) * 2), w, None, 2, 0, 1, 3)
+        y = y + bias.to(y.dtype)[:, None, None]
+        same = y * torch.sigmoid(y) if act == "silu" else torch.clamp(y, 0.0, 6.0)
+        assert torch.equal(_bits(got), _bits(same))
+    with pytest.raises(ValueError, match="pad"):
+        depthwise_conv(x, w, bias, 1, act, p)  # SAME is a stride-2 pad
 
 
 @pytest.mark.parametrize("k,stride,act", [(7, 1, "relu6"), (5, 2, "relu"), (3, 1, "none")])
@@ -226,11 +253,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _held_on_card(x, w, bias, stride, act):
+def _held_on_card(x, w, bias, stride, act, pad=-1):
     from litepose_tpu_torch.tools.depthwise_clock import held, ok
 
     before = depthwise_conv.launches
-    check = held(x, w, bias, stride, act)
+    check = held(x, w, bias, stride, act, pad)
     torch.cuda.synchronize()
     assert depthwise_conv.launches == before + 2  # the op, and the conv alone
     assert ok(check), check
@@ -244,6 +271,18 @@ def _held_on_card(x, w, bias, stride, act):
 def test_kernel_on_card(cuda, k, stride, act, hw):
     _held_on_card(*_inputs(2, 5, *hw, k, torch.bfloat16, seed=k + stride, device=cuda),
                   stride, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(240, 240), (60, 60), (30, 30), (15, 17)],
+                         ids=["240", "60", "30", "odd"])
+@pytest.mark.parametrize("k,act", [(3, "silu"), (5, "silu"), (7, "relu6")])
+def test_same_pad_kernel_on_card(cuda, k, act, hw):
+    """The stride-2 SAME pad (k // 2 - 1) held to both twins, at
+    EfficientHRNet-H-1@480's stride-2 depthwise planes and an odd one."""
+    check = _held_on_card(*_inputs(2, 5, *hw, k, torch.bfloat16, seed=k, device=cuda), 2, act,
+                          k // 2 - 1)
+    assert check["pad"] == k // 2 - 1 and check["order_equal"]
 
 
 @pytest.mark.cuda

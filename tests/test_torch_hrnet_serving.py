@@ -11,8 +11,8 @@ in bf16, ``PoseEngine.process_batch_square``'s people to the reference's
 maps decoded by the twins, the benchmark's copy of the reference to this
 one bit for bit, its fp8 control outside the benchmark's limits, the
 switches between training and eval, and the ``litepose.hrnet.*`` spans;
-and for every family that folds (LitePose, LitePose-ResNet, HigherHRNet)
-the eval constants ``fold_bn_`` stores.
+and for every family that folds (LitePose, LitePose-ResNet, HigherHRNet,
+EfficientHRNet) the eval constants ``fold_bn_`` stores.
 """
 
 import json
@@ -118,6 +118,18 @@ def _litepose_resnet(dtype):
                                 out_dtype=dtype)
 
 
+def _efficient_hrnet(dtype):
+    from litepose_tpu_torch.models.efficient_hrnet import EffHRNetSpec, init_efficient_hrnet
+
+    spec = EffHRNetSpec(depth_mult=0.483, width_mult=0.684, scale_factor=-5,
+                        stage2=StageSpec(1, 2, "BASIC", (1, 1), (32, 64)),
+                        stage3=StageSpec(1, 3, "BASIC", (1, 1, 1), (32, 64, 128)),
+                        stage4=StageSpec(1, 4, "BASIC", (1, 1, 1, 1), (32, 64, 128, 256)),
+                        deconv_num_basic_blocks=1)
+    return init_efficient_hrnet(spec, torch.Generator().manual_seed(0), compute_dtype=dtype,
+                                out_dtype=dtype)
+
+
 # family: (the model in training mode, its convs outside a pair, its BNs outside a pair)
 FOLDING = {
     # 6 transposed convs, the 4 heads' pointwise convs; the 3 head BNs
@@ -128,6 +140,9 @@ FOLDING = {
     "higher-hrnet": (lambda dtype: init_higher_hrnet(NARROW, torch.Generator().manual_seed(0),
                                                      compute_dtype=dtype, out_dtype=dtype),
                      3, NARROW.num_deconvs),
+    # the 10 squeeze-excitations' two linears, 2 final convs, the transposed
+    # conv; its BN
+    "efficient-hrnet": (_efficient_hrnet, 23, 1),
 }
 CONVS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d)
 

@@ -101,7 +101,8 @@ CASE_IDS = [f"{i}-{c[0]}" for i, c in enumerate(_cases("cpu"))]
 def test_ops_registered():
     assert library.OPS == ("nms_topk", "nms_topk_loop", "group_greedy",
                            "group_hungarian", "refine_argmax", "heatmap_nms",
-                           "depthwise_conv", "conv_epilogue", "conv3x3_bn_act")
+                           "depthwise_conv", "conv_epilogue", "conv3x3_bn_act",
+                           "squeeze_excite")
     for name in library.OPS:
         op = getattr(torch.ops.litepose, name).default
         assert op._schema.name == f"litepose::{name}"

@@ -40,6 +40,7 @@ from litepose_tpu_torch.utils import spans
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE_PY = os.path.join(REPO, "litepose_tpu_torch", "core", "engine.py")
 HRNET_PY = os.path.join(REPO, "litepose_tpu_torch", "models", "higher_hrnet.py")
+EFFHRNET_PY = os.path.join(REPO, "litepose_tpu_torch", "models", "efficient_hrnet.py")
 SIZE = 128
 FLAGS = dict(num_joints=14, with_heatmaps_loss=(True, True), with_ae_loss=(True, False),
              test_with_heatmaps=(True, True), test_with_ae=(True, False), flip_test=False)
@@ -161,11 +162,13 @@ def test_people_are_bit_identical_with_the_profiler_on_and_off(model, images):
 
 def test_every_span_is_opened_by_the_engine():
     """The engine opens the six ``litepose.engine.*`` spans, HigherHRNet's
-    forward the five ``litepose.hrnet.*`` ones, and ``SPANS`` is both."""
-    assert len(set(spans.SPANS)) == len(spans.SPANS) == 11
-    assert spans.SPANS == spans.ENGINE_SPANS + spans.HRNET_SPANS
+    forward the five ``litepose.hrnet.*`` ones, EfficientHRNet's the two
+    ``litepose.effhrnet.*`` ones, and ``SPANS`` is the three."""
+    assert len(set(spans.SPANS)) == len(spans.SPANS) == 13
+    assert spans.SPANS == spans.ENGINE_SPANS + spans.HRNET_SPANS + spans.EFFHRNET_SPANS
     for path, names, prefix in ((ENGINE_PY, spans.ENGINE_SPANS, "litepose.engine."),
-                                (HRNET_PY, spans.HRNET_SPANS, "litepose.hrnet.")):
+                                (HRNET_PY, spans.HRNET_SPANS, "litepose.hrnet."),
+                                (EFFHRNET_PY, spans.EFFHRNET_SPANS, "litepose.effhrnet.")):
         with open(path) as f:
             source = f.read()
         for name in names:
